@@ -1,0 +1,214 @@
+"""Multi-tap activation extraction with on-device SRP (port of
+``visreps_tpu/models/extractor.py:34-140, 505-934, 1041-1066``).
+
+One forward per batch captures every tap; each tap is flattened in
+(H, W, C) order (the JAX package's NHWC order) and projected by the
+seeded SRP on the device. uint8 batches are normalised on the device,
+after a pinned, non-blocking host→device copy.
+"""
+from __future__ import annotations
+
+import time
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.data.transforms import DS_MEAN, DS_STD
+from visreps_tpu_torch.device import resolve_device
+from visreps_tpu_torch.ops.srp import SRPTransform
+
+
+def expand_return_nodes(tap_specs: dict, return_nodes: Sequence[str],
+                        extract_pre_and_post: bool = True):
+    """Semantic layer names → (ordered tap points, {point: output name}).
+
+    With extract_pre_and_post each layer with a downstream activation
+    expands to (name_pre, name_post); without it the post point is
+    reported under the plain layer name.
+    """
+    points: list[str] = []
+    alias: dict[str, str] = {}
+    for name in return_nodes:
+        if name not in tap_specs:
+            rprint(f"Warning: {name} not found in model tap map", style="warning")
+            continue
+        spec = tap_specs[name]
+        if extract_pre_and_post or len(spec) == 1:
+            for p in spec:
+                points.append(p)
+                alias[p] = p
+        else:
+            points.append(spec[-1])
+            alias[spec[-1]] = name
+    return points, alias
+
+
+def _flatten_hwc(t: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, H·W·C); (B, D) unchanged."""
+    if t.dim() == 4:
+        t = t.permute(0, 2, 3, 1)
+    return t.reshape(t.shape[0], -1)
+
+
+class FeatureExtractor:
+    """All-tap forward + SRP per batch, on ``device`` (CUDA unless
+    ``"cpu"`` is asked for)."""
+
+    def __init__(self, model: nn.Module, return_nodes: Sequence[str],
+                 extract_pre_and_post: bool = True, srp_k: int = 4096,
+                 srp_seed: int = 0, image_size: int = 224,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.image_size = image_size
+        self.points, self.alias = expand_return_nodes(
+            model.TAPS, list(return_nodes), extract_pre_and_post)
+        self.srp = SRPTransform(k=srp_k, seed=srp_seed, device=self.device)
+        self._mean = torch.as_tensor(DS_MEAN["imgnet"], device=self.device)
+        self._std = torch.as_tensor(DS_STD["imgnet"], device=self.device)
+        with torch.inference_mode():
+            probe = torch.zeros((1, 3, image_size, image_size), device=self.device)
+            _, taps = self.model(probe, capture=self.points)
+        self.tap_dims = {self.alias[p]: taps[p][0].numel() for p in self.points}
+        #: Seconds the last get_activations spent waiting on the loader.
+        self.last_extract_times: dict[str, float] = {}
+
+    def out_dims(self) -> dict[str, int]:
+        return {name: self.srp.out_dim(d) for name, d in self.tap_dims.items()}
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) uint8 or normalised float32 batch → (B, 3, H, W)
+        float32 on the device; uint8 is normalised there."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        if t.dtype == torch.uint8:
+            t = (t.to(torch.float32) / 255.0 - self._mean) / self._std
+        return t.to(torch.float32).permute(0, 3, 1, 2)
+
+    def _flat_taps(self, x: torch.Tensor, points) -> dict[str, torch.Tensor]:
+        _, taps = self.model(x, capture=points)
+        return {p: _flatten_hwc(taps[p]) for p in points}
+
+    def _point_of(self, layer: str) -> str:
+        for p in self.points:
+            if self.alias[p] == layer or p == layer:
+                return p
+        raise KeyError(f"Layer {layer!r} not among extraction points {self.points}")
+
+    @torch.inference_mode()
+    def get_activations(self, loader: Iterable, store: str = "device"):
+        """All-tap SRP activations over a loader of (batch, keys).
+
+        store="device": {name: (N, k) bfloat16 tensor on the device} —
+        the 73k × 14 × 4096 NSD store is ≈ 8.4 GB, resident on an 80 GB
+        card. store="host": {name: (N, k) float32 CPU tensor}.
+        Returns (acts, ids) with row i of every tap belonging to ids[i].
+        """
+        if store not in ("device", "host"):
+            raise ValueError(f"store must be 'device' or 'host', got {store!r}")
+        n_total = len(loader.dataset)
+        dims = self.out_dims()
+        if store == "device":
+            acts = {name: torch.empty((n_total, k), dtype=torch.bfloat16, device=self.device)
+                    for name, k in dims.items()}
+        else:
+            parts: dict[str, list] = {name: [] for name in dims}
+        ids: list = []
+        loader_s = 0.0
+        it = iter(loader)
+        while True:
+            t = time.perf_counter()
+            item = next(it, None)
+            loader_s += time.perf_counter() - t
+            if item is None:
+                break
+            x, keys = item
+            flats = self._flat_taps(self._to_device(x), self.points)
+            b = len(keys)
+            for p in self.points:
+                out = self.srp(flats[p])
+                if store == "device":
+                    acts[self.alias[p]][len(ids):len(ids) + b] = out
+                else:
+                    parts[self.alias[p]].append(out.cpu())
+            ids.extend(keys)
+        if len(ids) != n_total:
+            raise RuntimeError(f"loader yielded {len(ids)} stimuli, expected {n_total}")
+        if store == "host":
+            acts = {name: torch.cat(p) for name, p in parts.items()}
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_extract_times = {"loader_s": loader_s}
+        rprint(f"  SRP activations: {len(acts)} taps x {len(ids)} stimuli ({store})",
+               style="success")
+        return acts, ids
+
+    @torch.inference_mode()
+    def extract_layers_exact(self, loader: Iterable, layer_names, stimulus_ids=None):
+        """Full-resolution float32 taps of several layers in ONE pass.
+
+        Returns ({layer: (N, D_layer) tensor on the device}, ids), rows
+        in ``stimulus_ids`` order when given (ids absent from the loader
+        are dropped with a warning).
+        """
+        point_of = {name: self._point_of(name) for name in layer_names}
+        points = tuple(dict.fromkeys(point_of.values()))
+        n_total = len(loader.dataset)
+        store = {p: torch.empty((n_total, self.tap_dims[self.alias[p]]),
+                                dtype=torch.float32, device=self.device)
+                 for p in points}
+        all_ids: list = []
+        for x, keys in loader:
+            flats = self._flat_taps(self._to_device(x), points)
+            for p in points:
+                store[p][len(all_ids):len(all_ids) + len(keys)] = flats[p]
+            all_ids.extend(keys)
+        if len(all_ids) != n_total:
+            raise RuntimeError(f"loader yielded {len(all_ids)} stimuli, expected {n_total}")
+        keep = None
+        if stimulus_ids is not None:
+            pos = {str(k): i for i, k in enumerate(all_ids)}
+            keep = [pos[str(s)] for s in stimulus_ids if str(s) in pos]
+            if len(keep) != len(stimulus_ids):
+                rprint(f"Warning: {len(stimulus_ids) - len(keep)} of {len(stimulus_ids)} "
+                       "requested stimulus_ids absent from the loader output "
+                       f"(kept {len(keep)})", style="warning")
+            all_ids = [all_ids[i] for i in keep]
+        rows = None if keep is None else torch.as_tensor(keep, device=self.device)
+        acts = {name: store[p] if rows is None else store[p][rows]
+                for name, p in point_of.items()}
+        del store
+        rprint(f"  Re-extracted {len(acts)} layers in one pass "
+               f"({len(all_ids)} stimuli, exact, no SRP)", style="success")
+        return acts, all_ids
+
+    def free_projection_cache(self) -> None:
+        """Drop the SRP matrices (~3.7 GB bf16 at AlexNet scale); they
+        regenerate from the seed on the next use."""
+        self.srp._cache.clear()
+
+
+def configure_feature_extractor(cfg, model: nn.Module,
+                                device: str | torch.device | None = None,
+                                verbose: bool = False) -> FeatureExtractor:
+    """Build a FeatureExtractor from an eval config."""
+    return_nodes = list(cfg.get("return_nodes") or [])
+    if not return_nodes:
+        raise ValueError("return_nodes must be specified in config")
+    extractor = FeatureExtractor(
+        model, return_nodes,
+        extract_pre_and_post=cfg.get("extract_pre_and_post", True),
+        srp_k=cfg.get("srp_k", 4096),
+        srp_seed=cfg.get("srp_seed", 0),
+        image_size=cfg.get("image_size", 224),
+        device=device,
+    )
+    suffix = f" ({len(return_nodes)} layers x pre/post)" if cfg.get("extract_pre_and_post", True) else ""
+    rprint(f"  {len(extractor.points)} extraction points{suffix}", style="success")
+    if verbose:
+        rprint(f"    Points: {extractor.points}", style="info")
+    return extractor

@@ -1,0 +1,133 @@
+"""Grouped Spearman scoring with bootstrap CIs (port of
+``visreps_tpu/ops/bootstrap.py:35-51, 185-303, 396-451, 654-655``).
+
+Every (region, subject) pair is scored against the SAME bootstrap index
+sets (numpy RandomState(42), bit-identical to the reference's serial
+draws). The point score is the average-tie Spearman of the full RDM
+triangles; each bootstrap score is the average-tie Spearman of the
+sub-RDM triangle of a 90 % stimulus subsample, computed sort-free:
+
+  * every full triangle is sorted ONCE; its tie groups are contiguous
+    runs of the sorted order (``stats.tie_groups``);
+  * per iteration the selected pairs form a mask; a cumulative sum of
+    the mask in sorted order gives, for each tie group, the selected
+    count before it and inside it — hence the subset's average rank of
+    every element, without sorting the subset;
+  * the score is the Pearson correlation of the masked rank vectors.
+
+Model-side ranks are shared by the pairs that selected the same layer;
+iterations run in chunks as batched tensor ops.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from visreps_tpu_torch.ops.rdm import compute_rdm, triu_indices
+from visreps_tpu_torch.ops.stats import tie_groups
+
+
+def bootstrap_indices(n_test: int, n_bootstrap: int = 1000, subsample_frac: float = 0.9,
+                      seed: int = 42) -> np.ndarray:
+    """(n_bootstrap, n_sub) without-replacement index sets, drawn with
+    ``np.random.RandomState(seed).choice`` per iteration exactly as the
+    reference and the JAX package draw them."""
+    rng = np.random.RandomState(seed)
+    n_sub = int(n_test * subsample_frac)
+    return np.stack(
+        [rng.choice(n_test, size=n_sub, replace=False) for _ in range(n_bootstrap)]
+    ).astype(np.int32)
+
+
+def percentile_ci(scores: np.ndarray, low: float = 2.5, high: float = 97.5):
+    return float(np.percentile(scores, low)), float(np.percentile(scores, high))
+
+
+def _centered(ranks: torch.Tensor, sel: torch.Tensor | None, m: float):
+    """Masked, centred rank vectors and their squared norms."""
+    if sel is None:
+        d = ranks - ranks.mean(dim=-1, keepdim=True)
+    else:
+        mu = (sel * ranks).sum(-1, keepdim=True) / m
+        d = sel * (ranks - mu)
+    return d, (d * d).sum(-1)
+
+
+def _subset_ranks(sel: torch.Tensor, groups) -> torch.Tensor:
+    """(c, M) selection masks → (c, M) average ranks of every element
+    within its iteration's selected subset (valid where sel == 1)."""
+    order, pos, gs, ge = groups
+    ms = sel[:, order]                      # mask in sorted order
+    cs = torch.cumsum(ms, dim=1)            # inclusive prefix count
+    pre_g = cs[:, gs] - ms[:, gs]           # selected before the group
+    k_g = cs[:, ge] - pre_g                 # selected inside the group
+    return (pre_g + 0.5 * (k_g + 1.0))[:, pos]
+
+
+def grouped_core(model_tris: torch.Tensor, neural_tris: torch.Tensor,
+                 pair_model: list[int], idx: torch.Tensor, n: int, chunk: int = 128):
+    """(L, M) model triangles, (P, M) neural triangles, pair → model row,
+    (B, m_sub) index sets over n stimuli → ((P, B) bootstrap scores,
+    (P,) point scores), both average-tie Spearman."""
+    device = model_tris.device
+    P = neural_tris.shape[0]
+    B, m_sub = idx.shape
+    m = float(m_sub * (m_sub - 1) // 2)
+    groups_m = [tie_groups(v) for v in model_tris]
+    groups_n = [tie_groups(v) for v in neural_tris]
+
+    def full_ranks(g):
+        _, pos, gs, ge = g
+        return (0.5 * (gs + ge).to(torch.float32) + 1.0)[pos]
+
+    dm, nm = zip(*(_centered(full_ranks(g), None, 0.0) for g in groups_m))
+    points = torch.stack([
+        (dm[pm] * db).sum() / torch.sqrt(nm[pm] * nb)
+        for pm, (db, nb) in zip(pair_model, (_centered(full_ranks(g), None, 0.0)
+                                             for g in groups_n))])
+    scores = torch.zeros((P, B), dtype=torch.float32, device=device)
+    if B == 0:
+        return scores, points
+    iu, ju = triu_indices(n, device)
+    for start in range(0, B, chunk):
+        ix = idx[start:start + chunk]
+        included = torch.zeros((ix.shape[0], n), dtype=torch.float32, device=device)
+        included.scatter_(1, ix, 1.0)
+        sel = included[:, iu] * included[:, ju]                       # (c, M)
+        model_side = [_centered(_subset_ranks(sel, g), sel, m) for g in groups_m]
+        for p, (pm, g) in enumerate(zip(pair_model, groups_n)):
+            db, nb = _centered(_subset_ranks(sel, g), sel, m)
+            da, na = model_side[pm]
+            scores[p, start:start + ix.shape[0]] = (da * db).sum(-1) / torch.sqrt(na * nb)
+    return scores, points
+
+
+def grouped_scoring(model_rdms: dict, pair_neural_mats: dict, pair_layer: dict,
+                    indices: np.ndarray, chunk: int = 128):
+    """Whole scoring phase for every pair.
+
+    model_rdms: {layer: (n, n) tensor}; pair_neural_mats: {pair: (n, v)
+    responses}; pair_layer: {pair: layer}; indices: (B, m_sub) bootstrap
+    index sets (B may be 0). The neural RDMs are built here, on the
+    model RDMs' device. Returns ({pair: (B,) float64 bootstrap scores},
+    {pair: float point score}).
+    """
+    pair_keys = list(pair_neural_mats)
+    layers = sorted({pair_layer[k] for k in pair_keys})
+    row = {l: i for i, l in enumerate(layers)}
+    device = model_rdms[layers[0]].device
+    n = model_rdms[layers[0]].shape[0]
+    iu, ju = triu_indices(n, device)
+    model_tris = torch.stack([model_rdms[l][iu, ju] for l in layers])
+    neural_tris = torch.stack([
+        compute_rdm(torch.as_tensor(np.asarray(pair_neural_mats[k], np.float32), device=device))[iu, ju]
+        for k in pair_keys])
+    idx = torch.as_tensor(np.asarray(indices, np.int64), device=device)
+    if idx.dim() != 2:
+        raise ValueError(f"indices must be (B, m_sub), got shape {tuple(idx.shape)}")
+    scores, points = grouped_core(model_tris, neural_tris,
+                                  [row[pair_layer[k]] for k in pair_keys], idx, n, chunk)
+    scores = scores.cpu().numpy().astype(np.float64)
+    points = points.cpu().numpy().astype(np.float64)
+    return ({k: scores[i] for i, k in enumerate(pair_keys)},
+            {k: float(points[i]) for i, k in enumerate(pair_keys)})

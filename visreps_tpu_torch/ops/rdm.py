@@ -1,0 +1,54 @@
+"""Correlation RDMs (port of ``visreps_tpu/ops/rdm.py:31-87``).
+
+``compute_rdm`` keeps every detail of the JAX recipe: row centring, the
+1e-12 variance stabiliser, the zero-variance guard (std < 10·correction
+→ 1), cov / (std_i·std_j + correction), clamp to [−1, 1], unit diagonal,
+1 − corr. The Gram product and that epilogue run in one call of
+``ops/rdm_kernel.rdm_from_centered``: the hand-written Hopper kernel on
+CUDA tensors, its plain torch version on CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from visreps_tpu_torch.ops.rdm_kernel import rdm_from_centered
+from visreps_tpu_torch.ops.stats import rankdata_dense
+
+
+def compute_rdm(representations: torch.Tensor, correlation: str = "pearson",
+                correction: float = 1e-12) -> torch.Tensor:
+    """(n, d) activations → (n, n) float32 dissimilarity matrix 1 − corr.
+
+    Diagonal 0, off-diagonals in [0, 2]. ``correlation`` is "pearson" or
+    "spearman" (dense row ranks). The result lies on the input's device.
+    """
+    corr_name = correlation.lower()
+    if corr_name not in {"pearson", "spearman"}:
+        raise ValueError("correlation must be 'Pearson' or 'Spearman'")
+    x = representations.to(torch.float32)
+    if corr_name == "spearman":
+        x = rankdata_dense(x, dim=1)
+    x = x - x.mean(dim=1, keepdim=True)
+    std = torch.sqrt((x * x).mean(dim=1) + correction)
+    std = torch.where(std < correction * 10, torch.ones_like(std), std)
+    return rdm_from_centered(x.contiguous(), std.contiguous(), correction)
+
+
+def triu_indices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Strict upper-triangle (row, col) indices in row-major order —
+    the order of ``np.triu_indices(n, k=1)``."""
+    iu = torch.triu_indices(n, n, offset=1, device=device)
+    return iu[0], iu[1]
+
+
+def upper_triangle(rdm: torch.Tensor) -> torch.Tensor:
+    """Vectorize the strict upper triangle of (..., n, n), row-major."""
+    iu, ju = triu_indices(rdm.shape[-1], rdm.device)
+    return rdm[..., iu, ju]
+
+
+def triangle_tie_count(rdm: torch.Tensor) -> int:
+    """Number of exactly-tied adjacent values in the sorted upper
+    triangle (0 ⇒ dense-rank Spearman equals average-tie Spearman)."""
+    s = torch.sort(upper_triangle(rdm)).values
+    return int((s[1:] == s[:-1]).sum())
