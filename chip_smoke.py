@@ -6,13 +6,20 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without the final line:
 
-  1. build — compile the RDM kernel (csrc/rdm.cu) from this checkout.
+  1. build — compile the RDM kernel (csrc/rdm.cu) from this checkout and
+     print ptxas's report of each kernel in it (Gram and reduce).
   2. kernel — the RDM kernel against its plain torch version on the card
      at the eval's shapes and one ragged shape (n and d not multiples of
      the tile) (f32 tolerance 1e-5, bf16 3e-3 against the plain version
-     on the same bf16 rows), with the kernel's time, the
-     plain version's, one torch.corrcoef call's (the library yardstick)
-     and the card's lower bound for the work.
+     on the same bf16 rows); the output must be exactly symmetric, with
+     an exactly zero diagonal, and bit-identical over two calls. With the
+     kernel's time per call (CUDA events; beside it the host's time to
+     enqueue the call, and the device time of the kernel's own launches
+     from torch.profiler), the plain version's, one torch.corrcoef call's (the
+     library yardstick), the card's lower bound for the work by the
+     cheapest route that meets the type's tolerance (f32: three TF32
+     tensor-core products; bf16: bf16 tensor cores), the bound without
+     tensor cores (f32 FMA) beside it, and the launch plan (tiles, splits).
   3. srp — the SRP product on the card (bf16 GEMM, f32 out) against the
      same product in f32 on widened operands (relative tolerance 1e-5).
   4. e2e — the NSD RSA eval through ``python -m visreps_tpu_torch.run``'s
@@ -21,7 +28,11 @@ non-zero without the final line:
      n_select 1000, 1000 bootstraps, Spearman, uint8 transfer, results.db.
      Checks results, db rows, finite scores, and that the kernel was
      launched exactly once per RDM the eval builds.
-  5. kernels — the per-kernel summary line.
+  5. path — the RDM shapes the eval called, with their launch counts and
+     the kernel's time at each: its time on the main path, Σ launches × ms.
+     A shape the kernel phase did not check (the phase-2 layers' widths)
+     gets the kernel phase's checks here before it is timed.
+  6. kernels — the per-kernel summary line.
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -37,19 +48,26 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks and memory rate (NVIDIA data sheet).
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# The bound takes the cheapest route that meets the type's tolerance:
+# f32 as three TF32 products (3xTF32), bf16 on the bf16 tensor cores.
+# The bound of f32 on the FMA units, without tensor cores, stays beside it.
+BOUND_ROUTE = {"float32": ("3xTF32 tensor cores", 3, 495e12),
+               "bfloat16": ("bf16 tensor cores", 1, 989e12)}
+FMA_PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 MEM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 3e-3}
 SRP_TOL = 1e-5  # of the largest |value|: f32 summation order only
 KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas's
     (1000, 4096, "float32"), (1000, 4096, "bfloat16"), (1000, 193600, "float32"),
-    (1000, 512, "float32"), (10000, 4096, "float32"), (10000, 4096, "bfloat16"),
-    (257, 1031, "float32"), (257, 1031, "bfloat16"),  # ragged n and d: masked edges
+    (1000, 512, "float32"),
+    (10000, 4096, "float32"), (10000, 4096, "bfloat16"),
+    (257, 1031, "float32"), (257, 1031, "bfloat16"),  # ragged n and d: padded stride
 ]
 E2E = {"n_shared": 1000, "n_unique": 1000, "n_subjects": 2, "n_regions": 2,
        "n_voxels": 512, "img_size": 256}
@@ -59,7 +77,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int) -> tuple[float, float]:
+    """Device ms per call (CUDA events around ``iters`` calls after a
+    warm-up call) and the host's ms per call to enqueue them (where that
+    is not below the device's, the host sets the pace)."""
     import torch
 
     fn()
@@ -67,11 +88,77 @@ def time_ms(fn, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / iters, host_ms
+
+
+def timing_iters(n: int, d: int) -> int:
+    return max(2, min(50, int(2e11 // (2 * n * n * d)) + 1))
+
+
+def time_kernel(xin, std) -> tuple[float, float]:
+    """The kernel's device and host-enqueue ms per call at these rows."""
+    from visreps_tpu_torch.ops import rdm_kernel
+
+    n, d = xin.shape
+    return time_ms(lambda: rdm_kernel.rdm_from_centered(xin, std), timing_iters(n, d))
+
+
+def profile_kernel(xin, std) -> dict:
+    """Device ms per call of the RDM's own CUDA kernels (Gram, and the
+    reduce where d is split), from torch.profiler: the kernel without the
+    wrapper's host work. None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from visreps_tpu_torch.ops import rdm_kernel
+
+    iters = timing_iters(*xin.shape)
+    rdm_kernel.rdm_from_centered(xin, std)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            rdm_kernel.rdm_from_centered(xin, std)
+        torch.cuda.synchronize()
+    us = {"gram": 0.0, "reduce": 0.0}
+    for e in prof.events():  # each launch (key_averages() was seen to drop one)
+        for name in us:
+            if f"rdm_{name}_kernel" in e.name:
+                us[name] += e.device_time_total
+    total = us["gram"] + us["reduce"]
+    return {"device_ms": total / iters / 1e3 if total > 0 else None,
+            "reduce_ms": us["reduce"] / iters / 1e3 if total > 0 else None}
+
+
+def bound(n: int, d: int, dtype: str) -> dict:
+    """The least time the card could take: the n(n+1)·d operations of
+    the symmetric product's upper triangle and diagonal over the peak of
+    the cheapest route for the type, or the bytes (rows in, RDM out) over
+    the memory rate, whichever is larger; and the f32-FMA bound."""
+    route, passes, peak = BOUND_ROUTE[dtype]
+    ops = float(n) * (n + 1) * d
+    nbytes = n * d * (4 if dtype == "float32" else 2) + 4 * n + 4 * n * n
+    t_ops, t_bytes = passes * ops / peak, nbytes / MEM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_route": route,
+            "bound_ms_fma": 1e3 * max(ops / FMA_PEAK_OPS[dtype], t_bytes)}
+
+
+def random_rows(n: int, d: int, dtype: str, gen):
+    """Correlated centred rows in ``dtype`` and their f32 stds."""
+    import torch
+
+    x = torch.randn((n, d), device="cuda", generator=gen)
+    x = x + 0.5 * torch.randn((1, d), device="cuda", generator=gen)
+    xc = x - x.mean(dim=1, keepdim=True)
+    std = torch.sqrt((xc * xc).mean(dim=1) + 1e-12)
+    return xc.to(getattr(torch, dtype)).contiguous(), std
 
 
 def phase_build():
@@ -79,9 +166,55 @@ def phase_build():
 
     t0 = time.perf_counter()
     so = rdm_kernel.build()
-    regs = [l.strip() for l in rdm_kernel.BUILD_LOG.splitlines() if "registers" in l]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": so.name, "ptxas": regs})
+    seconds = time.perf_counter() - t0
+    kernels, warnings = [], []
+    for line in rdm_kernel.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            kernels.append({"function": line.split("'")[1], "ptxas": []})
+        elif kernels and any(k in line for k in ("registers", "spill", "stack frame")):
+            kernels[-1]["ptxas"].append(line.strip())
+        elif "warning" in line.lower():
+            warnings.append(line.strip())
+    emit({"phase": "build", "seconds": seconds, "library": so.name, "kernels": kernels,
+          "warnings": warnings})
+
+
+def check_kernel(xin, std) -> float:
+    """Two kernel calls on these rows: each must count one launch, the
+    output must be exactly symmetric with an exactly zero diagonal, the
+    two outputs bit-identical, and within TOL of the plain version.
+    Returns the max |err|."""
+    import torch
+
+    from visreps_tpu_torch.ops import rdm_kernel
+
+    (n, d), dtype = xin.shape, str(xin.dtype).removeprefix("torch.")
+    before = rdm_kernel.LAUNCHES
+    out = rdm_kernel.rdm_from_centered(xin, std)
+    again = rdm_kernel.rdm_from_centered(xin, std)
+    torch.cuda.synchronize()
+    if rdm_kernel.LAUNCHES != before + 2:
+        raise RuntimeError("the kernel wrapper did not count its launches")
+    if not torch.equal(out, out.T):
+        raise RuntimeError(f"rdm kernel output not exactly symmetric at ({n}, {d}) {dtype}")
+    if not bool((out.diagonal() == 0).all()):
+        raise RuntimeError(f"rdm kernel diagonal not exactly 0 at ({n}, {d}) {dtype}")
+    if not torch.equal(out, again):
+        raise RuntimeError(f"rdm kernel not bit-reproducible at ({n}, {d}) {dtype}")
+    err = (out - rdm_kernel.rdm_from_centered_reference(xin, std)).abs().max().item()
+    if not err <= TOL[dtype]:
+        raise RuntimeError(f"rdm kernel disagrees at ({n}, {d}) {dtype}: "
+                           f"max |err| {err} > {TOL[dtype]}")
+    return err
+
+
+def launch_plan(xin) -> dict:
+    """The wrapper's plan for these rows on this card."""
+    from visreps_tpu_torch.ops import rdm_kernel
+
+    plan = rdm_kernel.plan(*xin.shape, xin.element_size(),
+                           rdm_kernel.device_sms(xin.device.index))
+    return {"tiles": plan.tiles, "splits": plan.splits, "sms": plan.sms}
 
 
 def phase_kernel():
@@ -93,37 +226,20 @@ def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for n, d, dtype in KERNEL_SHAPES:
-        x = torch.randn((n, d), device="cuda", generator=gen)
-        x = x + 0.5 * torch.randn((1, d), device="cuda", generator=gen)  # correlated rows
-        xc = x - x.mean(dim=1, keepdim=True)
-        std = torch.sqrt((xc * xc).mean(dim=1) + 1e-12)
-        xin = xc.to(getattr(torch, dtype)).contiguous()
-        del x
-        before = rdm_kernel.LAUNCHES
-        out = rdm_kernel.rdm_from_centered(xin, std)
-        torch.cuda.synchronize()
-        if rdm_kernel.LAUNCHES != before + 1:
-            raise RuntimeError("the kernel wrapper did not count its launch")
-        ref = rdm_kernel.rdm_from_centered_reference(xin, std)
-        err = (out - ref).abs().max().item()
-        if not err <= TOL[dtype]:
-            raise RuntimeError(f"rdm kernel disagrees at ({n}, {d}) {dtype}: "
-                               f"max |err| {err} > {TOL[dtype]}")
-        iters = max(2, min(50, int(2e11 // (2 * n * n * d)) + 1))
-        ms = time_ms(lambda: rdm_kernel.rdm_from_centered(xin, std), iters)
-        plain_ms = time_ms(lambda: rdm_kernel.rdm_from_centered_reference(xin, std), iters)
-        library_ms = time_ms(lambda: torch.corrcoef(xin), iters)
-        ops = float(n) * (n + 1) * d  # the symmetric product's upper triangle and diagonal
-        nbytes = n * d * xin.element_size() + 4 * n + 4 * n * n
-        t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / MEM_BYTES_PER_S
+        xin, std = random_rows(n, d, dtype, gen)
+        err = check_kernel(xin, std)
+        ms, host_ms = time_kernel(xin, std)
+        device = profile_kernel(xin, std)
+        iters = timing_iters(n, d)
+        plain_ms = time_ms(lambda: rdm_kernel.rdm_from_centered_reference(xin, std), iters)[0]
+        library_ms = time_ms(lambda: torch.corrcoef(xin), iters)[0]
         rec = {"phase": "kernel", "name": "rdm", "n": n, "d": d, "dtype": dtype,
-               "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "tflops": ops / ms / 1e9}
+               "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "host_ms": host_ms, **device,
+               "plain_ms": plain_ms, "library_ms": library_ms, **bound(n, d, dtype),
+               **launch_plan(xin), "tflops": float(n) * (n + 1) * d / ms / 1e9}
         emit(rec)
         records.append(rec)
-        del xin, xc, std, out, ref
+        del xin, std
         torch.cuda.empty_cache()
     return records
 
@@ -151,7 +267,8 @@ def phase_srp():
 
 
 def phase_e2e():
-    """The eval end to end; returns the kernel's launch count in it."""
+    """The eval end to end; returns the kernel's launch count in it and
+    the count of RDMs at each (n, d, dtype) it asked for."""
     tmp = Path(tempfile.mkdtemp(prefix="visreps_chip_smoke_"))
     try:
         return _e2e(tmp)
@@ -159,7 +276,7 @@ def phase_e2e():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _e2e(tmp: Path) -> int:
+def _e2e(tmp: Path):
     import torch
 
     os.environ.update({
@@ -181,7 +298,15 @@ def _e2e(tmp: Path) -> int:
     os.environ["NSD_STIMULI_HDF5"] = meta["stimuli"]
 
     from visreps_tpu_torch import evals, run
+    from visreps_tpu_torch.ops import rdm as rdm_ops
     from visreps_tpu_torch.ops import rdm_kernel
+
+    shapes = Counter()  # the RDM shapes compute_rdm hands the kernel wrapper
+    wrapper = rdm_ops.rdm_from_centered
+
+    def probe(xc, std, correction=1e-12):
+        shapes[(xc.shape[0], xc.shape[1], str(xc.dtype).removeprefix("torch."))] += 1
+        return wrapper(xc, std, correction)
 
     subjects = list(range(E2E["n_subjects"]))
     regions = ["early visual stream", "ventral visual stream"][: E2E["n_regions"]]
@@ -194,13 +319,17 @@ def _e2e(tmp: Path) -> int:
         "batchsize=256", "num_workers=8",
     ]
     torch.cuda.synchronize()
-    rdm_kernel.LAUNCHES = 0
-    t0 = time.perf_counter()
-    results = run.main(["--mode", "eval", "--config", str(ROOT / "configs/eval/base.json"),
-                        "--override", *overrides])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = rdm_kernel.LAUNCHES
+    rdm_ops.rdm_from_centered = probe
+    try:
+        rdm_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = run.main(["--mode", "eval", "--config", str(ROOT / "configs/eval/base.json"),
+                            "--override", *overrides])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rdm_kernel.LAUNCHES
+    finally:
+        rdm_ops.rdm_from_centered = wrapper
 
     n_pairs = len(subjects) * len(regions)
     if len(results) != n_pairs:
@@ -219,9 +348,10 @@ def _e2e(tmp: Path) -> int:
     n_layers = len(taps)
     unique_layers = len({r["layer"] for r in results})
     expected = len(subjects) * (n_layers + len(regions)) + unique_layers + n_pairs
-    if launches != expected:
-        raise RuntimeError(f"RDM kernel launched {launches} times in the eval, expected "
-                           f"{expected} (= S·(taps + R) + unique layers + pairs)")
+    if launches != expected or sum(shapes.values()) != expected:
+        raise RuntimeError(f"RDM kernel launched {launches} times in the eval for "
+                           f"{sum(shapes.values())} RDMs, expected {expected} "
+                           f"(= S·(taps + R) + unique layers + pairs)")
     phases = dict(evals.LAST_PHASE_TIMES)
     emit({"phase": "e2e", "seconds": wall, "fixture_s": fixture_s,
           "n_stimuli": meta["n_stimuli"], "n_results": len(results), "db_rows": db_rows,
@@ -232,7 +362,36 @@ def _e2e(tmp: Path) -> int:
           "scores": [{"layer": r["layer"], "score": r["score"], "ci": [r["ci_low"], r["ci_high"]]}
                      for r in results],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches
+    return launches, shapes
+
+
+def phase_path(shapes: Counter, records: list) -> float:
+    """The kernel's time on the main path: at each RDM shape the eval
+    asked for, its launches there times its ms per call. A shape the
+    kernel phase did not check is checked here as there (``check_kernel``)
+    and timed; its max |err| joins ``records``' in the summary line."""
+    import torch
+
+    seen = {(r["n"], r["d"], r["dtype"]): r for r in records}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for (n, d, dtype), count in sorted(shapes.items()):
+        rec = seen.get((n, d, dtype))
+        if rec is None:
+            xin, std = random_rows(n, d, dtype, gen)
+            rec = {"n": n, "d": d, "dtype": dtype, "max_abs_err": check_kernel(xin, std),
+                   "tol": TOL[dtype], "ms": time_kernel(xin, std)[0], **launch_plan(xin)}
+            del xin, std
+            torch.cuda.empty_cache()
+        rows.append({"n": n, "d": d, "dtype": dtype, "launches": count,
+                     "checked_here": (n, d, dtype) not in seen,
+                     **{k: rec[k] for k in ("ms", "max_abs_err", "tol", "tiles", "splits")},
+                     **bound(n, d, dtype)})
+    total = sum(r["launches"] * r["ms"] for r in rows)
+    emit({"phase": "path", "shapes": rows, "kernel_ms_on_path": total,
+          "bound_ms_on_path": sum(r["launches"] * r["bound_ms"] for r in rows)})
+    records.extend(r for r in rows if r["checked_here"])
+    return total
 
 
 def main() -> int:
@@ -248,7 +407,8 @@ def main() -> int:
     phase_build()
     records = phase_kernel()
     phase_srp()
-    launches = phase_e2e()
+    launches, shapes = phase_e2e()
+    phase_path(shapes, records)
 
     main_shape = records[0]  # (1000, 4096) f32: phase-1 selection, most launches
     emit({"kernels": [{
@@ -258,7 +418,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "bound_route": main_shape["bound_route"],
         "library_ms": main_shape["library_ms"],
+        "tiles": main_shape["tiles"], "splits": main_shape["splits"],
         "shape": [main_shape["n"], main_shape["d"], main_shape["dtype"]],
     }]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -121,6 +121,122 @@ class TestKernelPlainVersion:
             rdm_kernel.rdm_from_centered(xc, torch.ones(4, device="meta"))
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does: add half an ulp to the
+    magnitude bits, then clear the 13 dropped bits."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rdm_3xtf32(xc: torch.Tensor, std: torch.Tensor, correction: float = 1e-12,
+                part: int = 512) -> torch.Tensor:
+    """The kernel's f32 arithmetic in plain torch: hi = tf32(x),
+    lo = tf32(x − hi), lo·hiᵀ + hi·loᵀ + hi·hiᵀ per 512 of d, each part
+    added into an f32 total, then compute_rdm's epilogue."""
+    hi = _tf32(xc)
+    lo = _tf32(xc - hi)
+    total = torch.zeros((xc.shape[0],) * 2, dtype=torch.float32)
+    for k in range(0, xc.shape[1], part):
+        h, l = hi[:, k:k + part], lo[:, k:k + part]
+        total += l @ h.T + h @ l.T + h @ h.T
+    corr = (total / xc.shape[1] / (std[:, None] * std[None, :] + correction)).clamp(-1.0, 1.0)
+    corr.fill_diagonal_(1.0)
+    return 1.0 - corr
+
+
+class TestKernelPlanAndLayout:
+    """What surrounds the CUDA kernel, in Python the CPU reaches: the
+    launch plan, the padding of rows to TMA's 16-byte stride, the
+    wrapper's checks, and the 3xTF32 arithmetic of its f32 route."""
+
+    SHAPES = [(1000, 4096), (1000, 193600), (1000, 512), (1000, 1000), (10000, 4096),
+              (257, 1031), (129, 1), (1900, 193600), (40, 2048)]
+    SMS = 132  # an H100 SXM; on the card the wrapper passes the device's own count
+
+    @pytest.mark.parametrize("n,d", SHAPES)
+    @pytest.mark.parametrize("element_size", [4, 2])
+    def test_plan_covers_upper_tiles_and_d(self, n, d, element_size):
+        p = rdm_kernel.plan(n, d, element_size, self.SMS)
+        stage = 128 // element_size
+        tiles = rdm_kernel.upper_tiles(p.tiles_per_side)
+        assert p.grid == (len(tiles), p.splits) and p.n_pad >= n > p.n_pad - 128
+        # every upper tile (row <= col) exactly once, and no lower tile
+        assert sorted(tiles) == [(r, c) for r in range(p.tiles_per_side)
+                                 for c in range(p.tiles_per_side) if r <= c]
+        # the splits cover [0, d) without overlap or gap
+        b = p.split_bounds
+        assert len(b) == p.splits + 1 and b[0] == 0 and b[-1] == d
+        assert all(lo < hi for lo, hi in zip(b, b[1:]))
+        assert p.stage_bounds[-1] == -(-d // stage)
+        assert all(x % stage == 0 for x in b[:-1])
+        if p.splits > 1:
+            assert all(hi - lo >= 512 for lo, hi in zip(b, b[1:]))
+            assert p.workspace == (p.splits, p.n_pad, p.n_pad)
+        else:
+            assert p.workspace is None
+        if len(tiles) >= self.SMS:  # the tiles alone reach a wave of SMs
+            assert p.splits == 1
+
+    @pytest.mark.parametrize("sms", [132, 114])
+    def test_plan_fills_the_card_at_n_1000(self, sms):
+        p = rdm_kernel.plan(1000, 193600, 4, sms)
+        assert p.tiles == 36 and p.sms == sms
+        # whole waves of this card's SMs, or within one block of them
+        assert -p.tiles * p.splits % sms < p.tiles
+        assert rdm_kernel.plan(1000, 4096, 4, sms).splits > 1
+        if sms == 132:
+            assert p.tiles * p.splits % sms == 0  # 11 splits: 3 full waves
+
+    @pytest.mark.parametrize("d", [1031, 1])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_padding_keeps_the_rdm(self, rng, d, dtype):
+        xc, std = _centered(rng.randn(33, d).astype(np.float32))
+        xc = xc.to(dtype)
+        padded = rdm_kernel.pad_rows(xc)
+        assert padded.shape[1] * padded.element_size() % 16 == 0
+        assert padded.data_ptr() % 16 == 0 and padded.shape[1] > d
+        # the tensor map spans d columns of rows padded.shape[1] apart: that view
+        assert torch.equal(padded[:, :d], xc)
+        np.testing.assert_allclose(
+            _as_np(rdm_kernel.rdm_from_centered_reference(padded[:, :d], std)),
+            _as_np(rdm_kernel.rdm_from_centered_reference(xc, std)), atol=1e-6)
+
+    def test_padding_leaves_aligned_rows_and_fixes_a_misaligned_base(self):
+        xc = torch.randn(8, 64)
+        assert rdm_kernel.pad_rows(xc) is xc
+        shifted = torch.randn(8 * 64 + 1)[1:].view(8, 64)  # base 4 bytes off
+        fixed = rdm_kernel.pad_rows(shifted)
+        assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed[:, :64], shifted)
+
+    def test_3xtf32_emulation_matches_jax(self):
+        rng = np.random.RandomState(7)
+        x = (rng.randn(64, 193600) + 0.5 * rng.randn(1, 193600)).astype(np.float32)
+        ref = np.asarray(jrdm.compute_rdm(x))
+        got = _as_np(_rdm_3xtf32(*_centered(x)))
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+
+    def test_tf32_rounding(self):
+        x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-12, -(1.0 + 2.0**-11),
+                          1.0 + 2.0**-12])
+        # ties round away from zero; 10 mantissa bits survive
+        assert _tf32(x).tolist() == [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0]
+        assert not (_tf32(torch.randn(100)).view(torch.int32) & 0x1FFF).any()
+
+    def test_wrapper_raises_on_inputs_it_cannot_take(self):
+        xc, std = _centered(np.random.RandomState(0).randn(6, 10).astype(np.float32))
+        with pytest.raises(ValueError, match="contiguous"):
+            rdm_kernel.rdm_from_centered(xc.T.contiguous().T, std)
+        with pytest.raises(ValueError, match="std"):
+            rdm_kernel.rdm_from_centered(xc, std[:5].contiguous())
+        with pytest.raises(ValueError, match="std"):
+            rdm_kernel.rdm_from_centered(xc, std.double())
+        with pytest.raises(ValueError, match="device"):
+            rdm_kernel.rdm_from_centered(xc.to("meta"), std.to("meta"))
+        with pytest.raises(ValueError, match="2-D"):
+            rdm_kernel.rdm_from_centered(xc.double(), std)
+
+
 class TestStats:
     @pytest.mark.parametrize("kind", ["random", "tied"])
     def test_ranks(self, kind):
