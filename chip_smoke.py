@@ -28,11 +28,30 @@ non-zero without the final line:
      n_select 1000, 1000 bootstraps, Spearman, uint8 transfer, results.db.
      Checks results, db rows, finite scores, and that the kernel was
      launched exactly once per RDM the eval builds.
-  5. path — the RDM shapes the eval called, with their launch counts and
-     the kernel's time at each: its time on the main path, Σ launches × ms.
-     A shape the kernel phase did not check (the phase-2 layers' widths)
-     gets the kernel phase's checks here before it is timed.
-  6. kernels — the per-kernel summary line.
+  5. train — ``run.main(["--mode", "train", ...])`` with
+     configs/train/base.json and PCA labels (CustomCNN at 224 px,
+     pca_n_classes 32, AdamW, batch 256) on a synthetic on-disk ImageNet
+     of 1600 JPEGs (1280 train images: 5 steps per epoch), two epochs.
+     Checks finite losses and gradient norms, that the model and the
+     batches were on the card, the checkpoint files, and that epoch 2's
+     checkpoint loads back bit-identically; prints the loss per step,
+     ms per step (CUDA events, steps 2–10), images/s, the seconds the
+     step loop waited on the loader and peak device memory.
+  6. train_step — the train step alone (CustomCNN, 1000 classes, batch
+     256 on the card, AdamW): ms per step over 8 steps after a warm-up,
+     images/s, peak memory, and its bound (3 × the forward's operations
+     over the f32 FMA peak). Holds one step at batch 8 without dropout on
+     the card against the same step on the CPU (loss and gradient norm
+     within rtol 1e-4, BN running statistics within 1e-4 of each
+     tensor's largest value).
+  7. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
+     wrote (``load_model_from=checkpoint``, cfg_id 32, epoch 2), with the
+     same checks; its rows must carry cfg_id 32 and epoch 2.
+  8. path — the RDM shapes both evals called, with their launch counts
+     and the kernel's time at each: its time on the main path, Σ launches
+     × ms. A shape the kernel phase did not check gets the kernel phase's
+     checks here before it is timed.
+  9. kernels — the per-kernel summary line (launches: both evals).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -65,12 +84,16 @@ TOL = {"float32": 1e-5, "bfloat16": 3e-3}
 SRP_TOL = 1e-5  # of the largest |value|: f32 summation order only
 KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas's
     (1000, 4096, "float32"), (1000, 4096, "bfloat16"), (1000, 193600, "float32"),
+    (1000, 290400, "float32"), (1000, 186624, "float32"),  # CustomCNN conv1_pre, conv2_pre
     (1000, 512, "float32"),
     (10000, 4096, "float32"), (10000, 4096, "bfloat16"),
     (257, 1031, "float32"), (257, 1031, "bfloat16"),  # ragged n and d: padded stride
 ]
 E2E = {"n_shared": 1000, "n_unique": 1000, "n_subjects": 2, "n_regions": 2,
        "n_voxels": 512, "img_size": 256}
+TRAIN = {"n_images": 1600, "batch": 256, "epochs": 2, "pca_n_classes": 32}
+STEP = {"batch": 256, "iters": 8, "classes": 1000, "parity_batch": 8}
+STEP_RTOL = 1e-4  # card vs CPU: cuDNN and the CPU sum in different orders
 
 
 def emit(obj) -> None:
@@ -266,19 +289,8 @@ def phase_srp():
         raise RuntimeError(f"SRP product disagrees with its f32 form: {err} > {SRP_TOL}")
 
 
-def phase_e2e():
-    """The eval end to end; returns the kernel's launch count in it and
-    the count of RDMs at each (n, d, dtype) it asked for."""
-    tmp = Path(tempfile.mkdtemp(prefix="visreps_chip_smoke_"))
-    try:
-        return _e2e(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _e2e(tmp: Path):
-    import torch
-
+def nsd_fixture(tmp: Path) -> dict:
+    """The e2e evals' synthetic NSD fixture and results.db under ``tmp``."""
     os.environ.update({
         "VISREPS_BENCH_FIXTURE": str(tmp / "fixture"),
         "VISREPS_BENCH_N_SHARED": str(E2E["n_shared"]),
@@ -293,9 +305,19 @@ def _e2e(tmp: Path):
 
     t0 = time.perf_counter()
     meta = fixture.ensure_fixture()
-    fixture_s = time.perf_counter() - t0
+    meta["fixture_s"] = time.perf_counter() - t0
     os.environ["NSD_DATA_DIR"] = str(Path(meta["pickle"]).parent)
     os.environ["NSD_STIMULI_HDF5"] = meta["stimuli"]
+    return meta
+
+
+def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row):
+    """The eval through ``run.main`` on the fixture, with the kernel's
+    launch count set to 0 just before and read just after; checks
+    results, db rows (``db_where`` selects this eval's; ``expect_row``
+    checks each row's (cfg_id, epoch)), finite scores and one launch per
+    RDM. Returns the launches and the count of RDMs at each (n, d, dtype)."""
+    import torch
 
     from visreps_tpu_torch import evals, run
     from visreps_tpu_torch.ops import rdm as rdm_ops
@@ -311,8 +333,7 @@ def _e2e(tmp: Path):
     subjects = list(range(E2E["n_subjects"]))
     regions = ["early visual stream", "ventral visual stream"][: E2E["n_regions"]]
     overrides = [
-        "load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none",
-        "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
+        *source, "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
         f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
         "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
         "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
@@ -335,9 +356,9 @@ def _e2e(tmp: Path):
     if len(results) != n_pairs:
         raise RuntimeError(f"{len(results)} results, expected {n_pairs}")
     with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
-        db_rows = conn.execute("SELECT COUNT(*) FROM results").fetchone()[0]
-    if db_rows != n_pairs:
-        raise RuntimeError(f"{db_rows} results.db rows, expected {n_pairs}")
+        rows = conn.execute(f"SELECT cfg_id, epoch FROM results WHERE {db_where}").fetchall()
+    if len(rows) != n_pairs or not all(expect_row(*r) for r in rows):
+        raise RuntimeError(f"results.db rows {rows}, expected {n_pairs} of this eval")
     for r in results:
         vals = [r["score"], r["ci_low"], r["ci_high"], *r["bootstrap_scores"]]
         if len(r["bootstrap_scores"]) != 1000 or not all(math.isfinite(v) for v in vals):
@@ -353,16 +374,204 @@ def _e2e(tmp: Path):
                            f"{sum(shapes.values())} RDMs, expected {expected} "
                            f"(= S·(taps + R) + unique layers + pairs)")
     phases = dict(evals.LAST_PHASE_TIMES)
-    emit({"phase": "e2e", "seconds": wall, "fixture_s": fixture_s,
-          "n_stimuli": meta["n_stimuli"], "n_results": len(results), "db_rows": db_rows,
+    emit({"phase": phase, "seconds": wall, "fixture_s": meta["fixture_s"],
+          "n_stimuli": meta["n_stimuli"], "n_results": len(results), "db_rows": rows,
           "taps": taps, "unique_layers": unique_layers,
           "rdm_launches": launches, "rdm_launches_expected": expected,
+          "rdm_shapes": [[*k, v] for k, v in sorted(shapes.items())],
           "images_per_s": meta["n_stimuli"] / phases["extraction_s"],
           "phase_times_s": phases,
           "scores": [{"layer": r["layer"], "score": r["score"], "ci": [r["ci_low"], r["ci_high"]]}
                      for r in results],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches, shapes
+
+
+def phase_e2e(meta: dict):
+    """The untrained AlexNet eval (the first slice's main path)."""
+    return run_eval("e2e", meta, ["load_model_from=torchvision", "model_name=AlexNet",
+                                  "pretrained_dataset=none"],
+                    "cfg_id = 'untrained'", lambda cfg_id, epoch: epoch == -1)
+
+
+def phase_e2e_ckpt(meta: dict, checkpoint_dir: str):
+    """The eval of the checkpoint the train phase wrote (epoch 2)."""
+    return run_eval("e2e_ckpt", meta, [
+        "load_model_from=checkpoint", f"cfg_id={TRAIN['pca_n_classes']}",
+        f"checkpoint_dir={checkpoint_dir}",
+        f"checkpoint_model=checkpoint_epoch_{TRAIN['epochs']}.pth"],
+        f"cfg_id = {TRAIN['pca_n_classes']}",
+        lambda cfg_id, epoch: cfg_id == TRAIN["pca_n_classes"] and epoch == TRAIN["epochs"])
+
+
+def custom_cnn_forward_flops(num_classes: int, size: int = 224) -> float:
+    """2 × the multiply-adds of one CustomCNN forward on one image, from
+    its conv specs (convolutions and dense layers; BatchNorm, pooling and
+    ReLU are not counted)."""
+    from visreps_tpu_torch.models.custom_cnn import CustomCNN
+
+    macs, ch, hw = 0, 3, size
+    for out, k, stride, pad, pool in CustomCNN.CONV_SPECS:
+        hw = (hw + 2 * pad - k) // stride + 1
+        macs += hw * hw * out * k * k * ch
+        ch = out
+        if pool:
+            hw = (hw - CustomCNN.POOL) // 2 + 1
+    feats = ch * CustomCNN.GRID * CustomCNN.GRID
+    for out in (CustomCNN.FC, CustomCNN.FC, num_classes):
+        macs += feats * out
+        feats = out
+    return 2.0 * macs
+
+
+def phase_train(tmp: Path) -> str:
+    """Train CustomCNN on PCA labels through the CLI's entry point; returns
+    the checkpoint directory the eval reads (``{dir}`` of ``{dir}/cfg32a``)."""
+    import torch
+
+    from visreps_tpu_torch import run
+    from visreps_tpu_torch.benchmarks.fixture import write_imagenet_fixture
+    from visreps_tpu_torch.models.convert import params_from_jax
+    from visreps_tpu_torch.train import checkpoint as ckpt
+    from visreps_tpu_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    data = write_imagenet_fixture(tmp / "imagenet", TRAIN["n_images"],
+                                  pca_n_classes=TRAIN["pca_n_classes"])
+    fixture_s = time.perf_counter() - t0
+    checkpoint_dir = str(tmp / "model_checkpoints")
+    steps = []  # per step: (start event, stop event, batch device, params devices)
+    step_fn = trainer_mod.train_step
+
+    def probe(model, optimizer, images, labels, *args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(model, optimizer, images, labels, *args, **kwargs)
+        stop.record()
+        steps.append((start, stop, {images.device.type, labels.device.type},
+                      {p.device.type for p in model.parameters()}))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer_mod.train_step = probe
+    try:
+        t0 = time.perf_counter()
+        trainer = run.main([
+            "--mode", "train", "--config", str(ROOT / "configs/train/base.json"), "--override",
+            "pca_labels=true", f"pca_n_classes={TRAIN['pca_n_classes']}",
+            f"batchsize={TRAIN['batch']}", f"num_epochs={TRAIN['epochs']}",
+            "warmup_epochs=1",  # base.json's 2 would leave the cosine no epochs
+            "num_workers=16", "log_interval=1", "checkpoint_interval=1",
+            "log_checkpoints=true", f"checkpoint_dir={checkpoint_dir}",
+            *(f"{k}={v}" for k, v in data.items())])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.train_step = step_fn
+
+    n_steps = TRAIN["epochs"] * (int(TRAIN["n_images"] * 0.8) // TRAIN["batch"])
+    history = trainer.history
+    if len(history) != n_steps or len(steps) != n_steps:
+        raise RuntimeError(f"{len(history)} train steps, expected {n_steps}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
+        raise RuntimeError(f"non-finite loss or gradient norm: {history}")
+    if not all(batch == {"cuda"} and params == {"cuda"} for _, _, batch, params in steps):
+        raise RuntimeError("a train step ran with the batch or the model off the card")
+    run_dir = Path(checkpoint_dir) / f"cfg{TRAIN['pca_n_classes']}a"
+    expected = [f"checkpoint_epoch_{e}.pth" for e in range(TRAIN["epochs"] + 1)]
+    missing = [f for f in (*expected, "config.json", "training_metrics.csv")
+               if not (run_dir / f).is_file()]
+    if missing:
+        raise RuntimeError(f"train phase did not write {missing} in {run_dir}")
+    loaded, payload = ckpt.load_checkpoint(run_dir / expected[-1], device="cuda")
+    trained = trainer.model.state_dict()
+    reloaded = params_from_jax(payload["params"], payload["batch_stats"])
+    same = set(reloaded) == set(trained) and all(
+        torch.equal(loaded.state_dict()[k], trained[k]) for k in trained
+        if not k.endswith("num_batches_tracked"))
+    if not same or payload["epoch"] != TRAIN["epochs"]:
+        raise RuntimeError("epoch 2's checkpoint does not load back bit-identically")
+    step_ms = [a.elapsed_time(b) for a, b, _, _ in steps]
+    timed = step_ms[1:]  # steps 2–10
+    ms = sum(timed) / len(timed)
+    emit({"phase": "train", "seconds": wall, "fixture_s": fixture_s,
+          "n_train": len(trainer.datasets["train"]), "n_test": len(trainer.datasets["test"]),
+          "steps": len(history), "loss": [h["loss"] for h in history],
+          "grad_norm": [h["grad_norm"] for h in history],
+          "step_ms": step_ms, "ms_per_step": ms, "images_per_s": TRAIN["batch"] / ms * 1e3,
+          "loader_wait_s": trainer.loader_wait_s,
+          "metrics_csv": (run_dir / "training_metrics.csv").read_text().splitlines(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return checkpoint_dir
+
+
+def _step_cfg():
+    from visreps_tpu_torch.core.config import Config
+
+    return Config({"optimizer": "adamw", "learning_rate": 0.002, "weight_decay": 0.001,
+                   "grad_clip": 1.0, "lr_scheduler": "cosineannealinglr", "num_epochs": 20,
+                   "warmup_epochs": 2})
+
+
+def phase_train_step():
+    """The train step alone at batch 256 (the JAX bench's stage_train),
+    and one step on the card against the same step on the CPU."""
+    import torch
+
+    from visreps_tpu_torch.models.zoo import init_model
+    from visreps_tpu_torch.train.optim import Optimizer
+    from visreps_tpu_torch.train.trainer import train_step
+
+    cfg = _step_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model("CustomCNN", STEP["classes"], seed=0, device="cuda")
+    opt = Optimizer(model, cfg, 100, model.trainable_mask())
+    images = torch.randn((STEP["batch"], 3, 224, 224), device="cuda", generator=gen)
+    labels = torch.arange(STEP["batch"], device="cuda") % STEP["classes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, images, labels, gen, 0)  # warm-up
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(STEP["iters"]):
+        loss, grad_norm = train_step(model, opt, images, labels, gen, 1 + i)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / STEP["iters"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (math.isfinite(loss.item()) and math.isfinite(grad_norm.item())):
+        raise RuntimeError("non-finite loss or gradient norm in the timed steps")
+    flops = custom_cnn_forward_flops(STEP["classes"])
+    ops_ms = 1e3 * 3 * flops * STEP["batch"] / FMA_PEAK_OPS["float32"]
+    del model, opt, images, labels
+    torch.cuda.empty_cache()
+
+    # One step at batch 8 without dropout, card against CPU, same weights and batch.
+    b = STEP["parity_batch"]
+    x = torch.randn((b, 3, 224, 224), generator=torch.Generator().manual_seed(1))
+    y = torch.arange(b) % STEP["classes"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = init_model("CustomCNN", STEP["classes"], seed=0, device=dev, arch={"dropout": 0.0})
+        o = Optimizer(m, cfg, 100, m.trainable_mask())
+        lo, gn = train_step(m, o, x.to(dev), y.to(dev), None, 0)
+        out[dev] = (lo.item(), gn.item(),
+                    {k: v.cpu() for k, v in m.state_dict().items() if "running_" in k})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    stat_err = max(((s_gpu[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max()).item()
+                   for k in s_cpu)
+    rec = {"phase": "train_step", "batch": STEP["batch"], "classes": STEP["classes"],
+           "ms_per_step": ms, "images_per_s": STEP["batch"] / ms * 1e3, "peak_mem_gb": peak,
+           "forward_gflop_per_image": flops / 1e9,
+           "bound_ms": ops_ms, "bound_by": "operations", "bound_peak": "f32 FMA 67 TFLOP/s",
+           "parity": {"batch": b, "loss": [l_cpu, l_gpu], "grad_norm": [g_cpu, g_gpu],
+                      "bn_stats_max_rel_err": stat_err, "rtol": STEP_RTOL}}
+    emit(rec)
+    if not (abs(l_gpu - l_cpu) <= STEP_RTOL * abs(l_cpu)
+            and abs(g_gpu - g_cpu) <= STEP_RTOL * abs(g_cpu) and stat_err <= STEP_RTOL):
+        raise RuntimeError(f"train step on the card disagrees with the CPU: {rec['parity']}")
 
 
 def phase_path(shapes: Counter, records: list) -> float:
@@ -407,8 +616,17 @@ def main() -> int:
     phase_build()
     records = phase_kernel()
     phase_srp()
-    launches, shapes = phase_e2e()
-    phase_path(shapes, records)
+    tmp = Path(tempfile.mkdtemp(prefix="visreps_chip_smoke_"))
+    try:
+        meta = nsd_fixture(tmp)
+        launches, shapes = phase_e2e(meta)
+        checkpoint_dir = phase_train(tmp)
+        phase_train_step()
+        ckpt_launches, ckpt_shapes = phase_e2e_ckpt(meta, checkpoint_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches += ckpt_launches
+    phase_path(shapes + ckpt_shapes, records)
 
     main_shape = records[0]  # (1000, 4096) f32: phase-1 selection, most launches
     emit({"kernels": [{

@@ -287,7 +287,7 @@ class TestStandalone:
         ({"analysis": "encoding_score"}, "Encoding"),
         ({"compare_method": "kendall"}, "Pearson/Kendall scoring"),
         ({"reconstruct_from_pcs": True}, "Analysis remainder"),
-        ({"load_model_from": "checkpoint"}, "Training"),
+        ({"model_name": "VGG16"}, "Remaining models"),
     ])
     def test_out_of_slice_configs_raise(self, override, item):
         cfg = _cfg(Config).merge(override)

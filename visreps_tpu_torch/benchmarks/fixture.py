@@ -1,6 +1,8 @@
-"""Synthetic NSD fixture on disk (port of ``ensure_fixture`` in
-``visreps_tpu/benchmarks/fixture.py``: same content, seeds and env
-knobs; the JPEG pool is not written).
+"""Synthetic fixtures on disk: NSD for the eval, ImageNet for training.
+
+The NSD fixture is the port of ``ensure_fixture`` in
+``visreps_tpu/benchmarks/fixture.py`` (same content, seeds and env
+knobs; the JPEG pool is not written):
 
   * nsd_stimuli.npy — uint8 (N_STIMULI, IMG_SIZE, IMG_SIZE, 3), the
     pixels of the JAX fixture's HDF5 "imgBrick", stored as a numpy array
@@ -15,6 +17,12 @@ through the real loaders. Defaults are the 73k-stimulus NSD scale; the
 ``VISREPS_BENCH_*`` variables shrink it. The directory is
 ``$VISREPS_BENCH_FIXTURE``, else ``visreps_bench_fixture`` under the
 system temp directory.
+
+``write_imagenet_fixture`` writes an ImageNet in the layout training
+reads (``data/obj_cls.py``): flat ``n0000000k/`` folders of 256 px JPEGs,
+each class a colour with blocky noise, ``folder_labels.json`` and a
+PCA-label CSV ``pca_labels/n_classes_{K}.csv`` that gives class k the
+PCA label k mod K.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import os
 import pickle
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -99,3 +108,41 @@ def ensure_fixture() -> dict:
     }
     meta_path.write_text(json.dumps(meta))
     return meta
+
+
+def write_imagenet_fixture(root: str | Path, n_images: int, n_classes: int = 32,
+                           pca_n_classes: int = 32) -> dict:
+    """Write ``n_images`` 256 px JPEGs over ``n_classes`` folders under
+    ``root`` (numpy RandomState(0)); returns the training config's
+    overrides for them: ``dataset_path``, ``label_file`` and an absolute
+    ``pca_labels_folder``."""
+    from PIL import Image
+
+    root = Path(root).resolve()
+    images = root / "images"
+    pca_dir = root / "pca_labels"
+    pca_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(0)
+    colours = rng.randint(0, 256, (n_classes, 3))
+    wnids = [f"n{k:08d}" for k in range(n_classes)]
+    for wnid in wnids:
+        (images / wnid).mkdir(parents=True, exist_ok=True)
+    block = 16  # noise in 16 × 16 blocks keeps the JPEGs small and fast to decode
+    noise = rng.randint(-40, 41, (n_images, 256 // block, 256 // block, 3))
+    names = [f"{wnids[i % n_classes]}_{i}.JPEG" for i in range(n_images)]
+
+    def write(i):
+        px = np.kron(noise[i], np.ones((block, block, 1), np.int64)) + colours[i % n_classes]
+        Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(
+            images / wnids[i % n_classes] / names[i], quality=90)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, range(n_images)))
+    label_file = root / "folder_labels.json"
+    label_file.write_text(json.dumps({w: k for k, w in enumerate(wnids)}))
+    with open(pca_dir / f"n_classes_{pca_n_classes}.csv", "w") as f:
+        f.write("image,pca_label\n")
+        f.writelines(f"{name},{(i % n_classes) % pca_n_classes}\n"
+                     for i, name in enumerate(names))
+    return {"dataset_path": str(images), "label_file": str(label_file),
+            "pca_labels_folder": str(pca_dir)}

@@ -1,1 +1,2 @@
-"""Stimulus transforms, the prefetching loader and NSD data loading."""
+"""Stimulus transforms, the prefetching loader, NSD data loading, the
+object-classification datasets and batch augmentation."""

@@ -1,6 +1,6 @@
-"""Threaded prefetching stimulus loader (copy of
-``visreps_tpu/data/loader.py``'s ``PrefetchLoader`` / ``StimuliDataset``
-without the native C++ decoder: decode runs in threaded PIL/numpy).
+"""Threaded prefetching loader (copy of ``visreps_tpu/data/loader.py``'s
+``PrefetchLoader``, ``StimuliDataset`` and ``LabeledDataset`` without the
+native C++ decoder: decode runs in threaded PIL/numpy).
 
 Batches are assembled in a thread pool (PIL decode and h5py reads
 release the GIL) behind a bounded prefetch queue of numpy batches; the
@@ -11,27 +11,45 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Sequence
 
 import numpy as np
 
+from visreps_tpu_torch.data.transforms import load_image
+
 
 class PrefetchLoader:
-    """Iterates (batch_array, keys) in dataset order with background
-    batch assembly. ``dataset`` is indexable, returning (array, key)."""
+    """Iterates (batch_array, metas) with background batch assembly.
+    ``dataset`` is indexable, returning (array, meta).
+
+    With ``shuffle`` the n-th pass (counting from 0, every ``iter`` of
+    this loader) takes the order ``RandomState(seed + n).permutation``,
+    as the JAX package's loader does, so both yield the same batches.
+    """
 
     def __init__(self, dataset, batch_size: int = 128, num_workers: int = 16,
-                 prefetch: int = 4):
+                 prefetch: int = 4, shuffle: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
-    def __iter__(self):
+    def _index_order(self) -> np.ndarray:
         n = len(self.dataset)
-        batches = [range(i, min(i + self.batch_size, n)) for i in range(0, n, self.batch_size)]
+        if not self.shuffle:
+            return np.arange(n)
+        return np.random.RandomState(self.seed + self._epoch).permutation(n)
+
+    def __iter__(self):
+        order = self._index_order()
+        self._epoch += 1
+        batches = [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -111,3 +129,18 @@ def make_stimuli_loader(stimuli, transform, batch_size: int, num_workers: int = 
     """In-order loader over a stimulus dict."""
     return PrefetchLoader(StimuliDataset(stimuli, transform), batch_size=batch_size,
                           num_workers=num_workers)
+
+
+class LabeledDataset:
+    """(image, int label) dataset over (path, label, image id) samples."""
+
+    def __init__(self, samples: Sequence, transform: Callable):
+        self.samples = list(samples)
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        path, label, _ = self.samples[idx]
+        return self.transform(load_image(path)), label

@@ -1,5 +1,6 @@
-"""NSD RSA evaluation (port of ``visreps_tpu/evals.py:96-123, 143-302,
-397-873`` for ``neural_dataset=nsd``, ``analysis=rsa``).
+"""NSD RSA evaluation (port of ``visreps_tpu/evals.py:54-66, 96-123,
+143-302, 397-873`` for ``neural_dataset=nsd``, ``analysis=rsa``), of an
+untrained torchvision-architecture model or of a checkpoint.
 
 The two-phase protocol of the reference:
 
@@ -18,7 +19,9 @@ naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -33,7 +36,7 @@ from visreps_tpu_torch.data.neural import load_all_nsd_data
 from visreps_tpu_torch.data.transforms import get_transform
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.extractor import configure_feature_extractor
-from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES, load_model
+from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES, checkpoint_path, load_model
 from visreps_tpu_torch.ops.bootstrap import bootstrap_indices, grouped_scoring, percentile_ci
 from visreps_tpu_torch.ops.rdm import compute_rdm
 
@@ -42,6 +45,18 @@ from visreps_tpu_torch.ops.rdm import compute_rdm
 #: host loader), phase1_selection_s, phase2_extract_s,
 #: scoring_bootstrap_s. Rewritten by every eval() call.
 LAST_PHASE_TIMES: Dict[str, float] = {}
+
+
+def _load_cfg(cfg: Config) -> Config:
+    """The eval config merged over the checkpoint's training config: the
+    epoch comes from the checkpoint's file name, and the training
+    config's mode, exp_name, lr_scheduler and n_classes are dropped."""
+    with open(Path(checkpoint_path(cfg)).parent / "config.json") as f:
+        base = Config(json.load(f))
+    base.epoch = int(cfg.checkpoint_model.split("_")[-1].split(".")[0])
+    for k in ("mode", "exp_name", "lr_scheduler", "n_classes"):
+        base.pop(k, None)
+    return base.merge(cfg)
 
 
 def _listify(val) -> list:
@@ -98,9 +113,8 @@ def _check_slice(cfg) -> None:
         missing("bootstrap_exact_ties=false (dense-rank bootstrap)", "Pearson/Kendall scoring")
     if cfg.get("reconstruct_from_pcs"):
         missing("reconstruct_from_pcs", "Analysis remainder")
-    if cfg.get("load_model_from") == "checkpoint":
-        missing("load_model_from=checkpoint", "Training")
-    if cfg.get("model_name", "AlexNet") not in TORCHVISION_RETURN_NODES:
+    if (cfg.get("load_model_from") != "checkpoint"
+            and cfg.get("model_name", "AlexNet") not in TORCHVISION_RETURN_NODES):
         missing(f"model_name={cfg.get('model_name')}", "Remaining models")
 
 
@@ -115,9 +129,12 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     verbose = cfg.get("verbose", False)
     LAST_PHASE_TIMES.clear()
 
-    cfg.epoch = -1
-    cfg.cfg_id = "pretrained" if cfg.get("pretrained_dataset") == "imagenet1k" else "untrained"
-    cfg.return_nodes = TORCHVISION_RETURN_NODES[cfg.get("model_name", "AlexNet")]
+    if cfg.get("load_model_from") == "checkpoint":
+        cfg = _load_cfg(cfg)
+    else:
+        cfg.epoch = -1
+        cfg.cfg_id = "pretrained" if cfg.get("pretrained_dataset") == "imagenet1k" else "untrained"
+        cfg.return_nodes = TORCHVISION_RETURN_NODES[cfg.get("model_name", "AlexNet")]
     subjects = _listify(cfg.subject_idx)
     regions = _listify(cfg.region)
     seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"

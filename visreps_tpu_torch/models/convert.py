@@ -1,7 +1,14 @@
-"""Carry weights and projections across from the JAX package.
+"""Carry weights and projections across from and to the JAX package.
 
-Both functions take numpy arrays only, so the port never imports JAX:
-the caller turns the JAX pytrees into numpy (``np.asarray``) first.
+The functions take and return numpy arrays only, so the port never
+imports JAX: the caller turns JAX pytrees into numpy (``np.asarray``)
+first. Names map one to one, the Flax path joined with dots: a leaf
+``{path}/kernel`` becomes ``{path}.weight`` (a conv's HWIO → OIHW, a dense
+layer's (in, out) → (out, in)), ``scale`` becomes ``weight`` and ``bias``
+stays ``bias``; the ``batch_stats`` leaves ``mean`` / ``var`` become the
+BatchNorm buffers ``running_mean`` / ``running_var``. AlexNet's flat tree
+(``conv1/kernel``) and CustomCNN's nested one (``conv1/conv/kernel``,
+``conv1/bn/scale``) go through the same rule.
 """
 from __future__ import annotations
 
@@ -12,27 +19,85 @@ import torch
 
 from visreps_tpu_torch.ops.srp import SRPTransform
 
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
-def params_from_jax(params: Mapping[str, Mapping[str, np.ndarray]]) -> dict[str, torch.Tensor]:
-    """Flax parameter tree → PyTorch state_dict.
 
-    ``{name}/kernel`` of a conv is HWIO and becomes OIHW; of a dense
-    layer it is (in, out) and becomes (out, in). Biases carry over as
-    they are. Names are kept (``conv1.weight``, ``fc3.bias`` …), which
-    are the port's AlexNet parameter names.
+def _leaves(tree: Mapping, prefix: tuple = ()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))  # a writable copy
+
+
+def params_from_jax(params: Mapping, batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """Flax ``params`` (and ``batch_stats``) trees → PyTorch state_dict.
+
+    A BatchNorm carried across also gets ``num_batches_tracked`` = 0
+    (the JAX package keeps no such count; momentum makes it unused).
     """
     state = {}
-    for name, leaf in params.items():
-        kernel = np.asarray(leaf["kernel"], np.float32)
-        if kernel.ndim == 4:
-            weight = kernel.transpose(3, 2, 0, 1)
-        elif kernel.ndim == 2:
-            weight = kernel.T
-        else:
-            raise ValueError(f"{name}/kernel has unsupported rank {kernel.ndim}")
-        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
-        state[f"{name}.bias"] = torch.from_numpy(np.asarray(leaf["bias"], np.float32).copy())
+    for path, leaf in _leaves(params):
+        *mod, name = path
+        arr = np.asarray(leaf)
+        if name == "kernel":
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{'/'.join(path)} has unsupported rank {arr.ndim}")
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        elif name != "bias":
+            raise ValueError(f"unknown parameter {'/'.join(path)}")
+        state[".".join([*mod, name])] = _tensor(arr)
+    for path, leaf in _leaves(batch_stats or {}):
+        *mod, name = path
+        if name not in _STAT_NAMES:
+            raise ValueError(f"unknown batch statistic {'/'.join(path)}")
+        state[".".join([*mod, _STAT_NAMES[name]])] = _tensor(leaf)
+        state[".".join([*mod, "num_batches_tracked"])] = torch.tensor(0)
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict | None]:
+    """PyTorch state_dict → (Flax ``params``, ``batch_stats`` or None) as
+    nested dicts of float32 numpy arrays, the inverse of
+    ``params_from_jax``. ``num_batches_tracked`` is dropped."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, mod, name, arr):
+        node = tree
+        for key in mod:
+            node = node.setdefault(key, {})
+        node[name] = arr
+
+    for key, t in state.items():
+        *mod, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name in ("running_mean", "running_var"):
+            put(stats, mod, name.removeprefix("running_"), arr.copy())
+        elif name == "weight":
+            if arr.ndim == 4:
+                put(params, mod, "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
+            elif arr.ndim == 2:
+                put(params, mod, "kernel", np.ascontiguousarray(arr.T))
+            else:
+                put(params, mod, "scale", arr.copy())
+        elif name == "bias":
+            put(params, mod, "bias", arr.copy())
+        else:
+            raise ValueError(f"unknown state entry {key}")
+    return params, (stats or None)
 
 
 def srp_from_jax(srp: SRPTransform, chunks_by_dim: Mapping[int, tuple]) -> None:

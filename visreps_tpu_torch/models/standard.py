@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from visreps_tpu_torch.models.layers import dropout
+
 ALEXNET_TAPS = {
     **{f"conv{i}": (f"conv{i}_pre", f"conv{i}_post") for i in range(1, 6)},
     "fc1": ("fc1_pre", "fc1_post"),
@@ -48,11 +50,18 @@ class AlexNet(nn.Module):
         self.fc1 = nn.Linear(256 * 6 * 6, 4096)
         self.fc2 = nn.Linear(4096, 4096)
         self.fc3 = nn.Linear(4096, num_classes)
-        self.dropout = nn.Dropout(dropout)
+        self.num_classes = num_classes
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, capture: Sequence[str] = ()):
+    def spec(self) -> dict:
+        """The constructor spec a checkpoint stores (``train/checkpoint.py``)."""
+        return {"class": "AlexNet", "num_classes": self.num_classes, "dropout": self.dropout}
+
+    def forward(self, x: torch.Tensor, capture: Sequence[str] = (),
+                generator: torch.Generator | None = None):
         """x: (B, 3, H, W) float → (logits, {tap name: tensor}) for the
-        requested tap names."""
+        requested tap names. In training mode dropout draws its masks
+        from ``generator``."""
         capture = frozenset(capture)
         taps: dict[str, torch.Tensor] = {}
 
@@ -70,7 +79,8 @@ class AlexNet(nn.Module):
         x = F.adaptive_avg_pool2d(x, (6, 6))
         x = torch.flatten(x, 1)  # channel-major, as the JAX package flattens
         for i in (1, 2):
-            x = self.dropout(x)
+            if self.training:
+                x = dropout(x, self.dropout, generator)
             x = getattr(self, f"fc{i}")(x)
             tap(f"fc{i}_pre", x)
             x = F.relu(x)
