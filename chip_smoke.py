@@ -51,7 +51,32 @@ non-zero without the final line:
      and the kernel's time at each: its time on the main path, Σ launches
      × ms. A shape the kernel phase did not check gets the kernel phase's
      checks here before it is timed.
-  9. kernels — the per-kernel summary line (launches: both evals).
+  9. encoding — the NSD encoding-score eval through ``run.main`` at full
+     width (untrained AlexNet, 14 taps, SRP k=4096, uint8 transfer,
+     ``encoding_cv_precision=high``, 1000 bootstraps, results.db) on a
+     synthetic fixture at NSD's own counts, built in its own directory:
+     1,000 shared + 2 × 9,000 unique stimuli (19,000), 2 subjects × 2
+     regions × 7,604 voxels. 7,200 fit rows keep the Woodbury route.
+     Checks 4 results and 4 results.db rows, 14 selection scores each,
+     finite scores, CIs and 1000 bootstrap scores, -1 ≤ ci_low ≤ ci_high
+     ≤ 1, the store and every ridge tensor on the card, the route (no
+     per-fold eigh), and no RDM launch. Prints the eval's and the
+     encoding module's phase times, extraction images/s, ms per 4096
+     eigh (alone and in a batch of 14), 20 small inverses one by one
+     and batched, peak memory, and the operation counts of the
+     selection sweep and the refits with their bounds.
+ 10. encoding_check — one subject's ``compute_encoding_scores_subject``
+     on planted data (y = tap3·W + noise; 3 taps, 2 regions × 1,000
+     voxels, 1,000 test rows) on both solver routes: n_train 6,400 and
+     d 512 (Woodbury), n_train 400 and d 512 (per-fold eigh, on the
+     alphas ≥ 1, where its rank-deficient fold Grams do not decide the
+     result by roundoff; the protocol's 20 alphas are run too and their
+     card-vs-CPU difference printed). At ``highest`` the card and the CPU
+     select the same layers and agree within 1e-4 (scores and CIs); on
+     the card ``high`` selects the layers ``highest`` does, with
+     |Δscore| ≤ 1e-3.
+ 11. kernels — the per-kernel summary line (launches: both RSA evals;
+     the encoding eval launches none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -91,6 +116,13 @@ KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas'
 ]
 E2E = {"n_shared": 1000, "n_unique": 1000, "n_subjects": 2, "n_regions": 2,
        "n_voxels": 512, "img_size": 256}
+ENCODING = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 2, "n_regions": 2,
+            "n_voxels": 7604, "img_size": 256}  # 7,604: the widest NSD ROI of the JAX bench
+ENC_CHECK = {"routes": {"woodbury": (6400, 512), "eigh": (400, 512)},
+             "taps": 3, "voxels": 1000, "n_test": 1000, "n_bootstrap": 1000}
+ENC_TOL = 1e-4       # card vs CPU at "highest": scores and CIs
+ENC_HIGH_TOL = 1e-3  # "high" vs "highest" on the card: |Δscore|
+TF32_PEAK_OPS = 495e12
 TRAIN = {"n_images": 1600, "batch": 256, "epochs": 2, "pca_n_classes": 32}
 STEP = {"batch": 256, "iters": 8, "classes": 1000, "parity_batch": 8}
 STEP_RTOL = 1e-4  # card vs CPU: cuDNN and the CPU sum in different orders
@@ -603,6 +635,299 @@ def phase_path(shapes: Counter, records: list) -> float:
     return total
 
 
+def wood_cv_ops(n: int, d: int, v: int, n_alphas: int = 20,
+                n_folds: int = 5) -> tuple[float, float]:
+    """Operations of ``ridge._wood_cv_scores`` at these shapes, 2·m·n·k per
+    product: (the v-wide products ``high`` runs on TF32, the f32 rest).
+
+    TF32 at ``high``, per fold and alpha: r1 = uᵀ·c1 (nv·d·v), inv(s)·r1
+    and K·z (nv²·v each). f32: Vᵀc (d²·v), per fold u (d²·nv) and Vᵀc_f
+    (d·nv·v), per fold and alpha K (nv²·d) and inv(s) (≈ 2·nv³)."""
+    from visreps_tpu_torch.ops.ridge import _kfold_bounds
+
+    nvs = [stop - start for start, stop in _kfold_bounds(n, n_folds)]
+    sweep = sum(n_alphas * 2.0 * (nv * d * v + 2 * nv * nv * v) for nv in nvs)
+    f32 = 2.0 * d * d * v + sum(2.0 * (d * d * nv + d * nv * v)
+                                + n_alphas * 2.0 * (nv * nv * d + nv ** 3) for nv in nvs)
+    return sweep, f32
+
+
+def ridge_ops(n: int, d: int, v: int, n_pred: int) -> tuple[float, float]:
+    """Operations of one Woodbury RidgeCV fit and prediction at these
+    shapes, as ``ops/ridge.py`` computes it: the CV sweep (``wood_cv_ops``)
+    plus, in f32, the Gram (n·d²), its eigh (≈ 10/3·d³: tridiagonalisation
+    and back-transformation), c = xᵀy (n·d·v), the weights (2 × d²·v) and
+    the prediction of n_pred rows (n_pred·d·v)."""
+    sweep, f32 = wood_cv_ops(n, d, v)
+    return sweep, f32 + 2.0 * (n * d * d + n * d * v + 2 * d * d * v + n_pred * d * v) \
+        + 10 / 3 * d ** 3
+
+
+def ops_bound(fits: list, precision: str) -> dict:
+    """Σ operations of ``fits`` [(n, d, v, n_pred), ...] and the least
+    time the card could take: at ``highest`` all of them over the f32
+    FMA peak, at ``high`` the sweep over the TF32 peak plus the rest over
+    the f32 peak."""
+    sweep = f32 = 0.0
+    for fit in fits:
+        a, b = ridge_ops(*fit)
+        sweep, f32 = sweep + a, f32 + b
+    if precision == "highest":
+        bound = (sweep + f32) / FMA_PEAK_OPS["float32"]
+    else:
+        bound = sweep / TF32_PEAK_OPS + f32 / FMA_PEAK_OPS["float32"]
+    return {"fits": len(fits), "sweep_tflop": sweep / 1e12, "f32_tflop": f32 / 1e12,
+            "bound_s": bound, "precision": precision}
+
+
+def time_linalg() -> dict:
+    """At one selection fit's NSD shapes (7,200 fit rows, d 4096, 15,208
+    voxels): ms per f32 eigh of the (4096, 4096) Gram, alone (CUDA events
+    over 3 calls after a warm-up) and in a batch of 14 (one call); 20
+    inverses of (1440, 1440) systems (one fold's 20 alphas) one by one
+    against one batched call; and the Woodbury CV sweep
+    (``ridge._wood_cv_scores``) at ``high`` and ``highest``, beside its
+    bounds."""
+    import torch
+
+    from visreps_tpu_torch.ops import ridge
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((7200, 4096), device="cuda", generator=gen)
+    g = x.T @ x
+    eigh_ms = time_ms(lambda: torch.linalg.eigh(g), 3)[0]
+    y = torch.randn((7200, 15208), device="cuda", generator=gen)
+    lam, v_eig = ridge._gram_eigh(g)
+    c = x.T @ y
+    alphas = torch.as_tensor(ridge.default_alphas(), dtype=torch.float32, device="cuda")
+    sweep_ms = {p: time_ms(lambda: ridge._wood_cv_scores(x, y, lam, v_eig, c, alphas, 5, p), 1)[0]
+                for p in ("high", "highest")}
+    tf32_ops, f32_ops = wood_cv_ops(7200, 4096, 15208)
+    del y, lam, v_eig, c
+    batch = g.expand(14, -1, -1).contiguous()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.linalg.eigh(batch)
+    stop.record()
+    torch.cuda.synchronize()
+    batch_ms = start.elapsed_time(stop) / 14
+    del x, g, batch
+    u = torch.randn((20, 1440, 1440), device="cuda", generator=gen) / 1440 ** 0.5
+    s = torch.eye(1440, device="cuda") + u @ u.mT
+    one_by_one = time_ms(lambda: [torch.linalg.inv_ex(s[i]) for i in range(20)], 3)[0]
+    batched = time_ms(lambda: torch.linalg.inv_ex(s), 3)[0]
+    del u, s
+    torch.cuda.empty_cache()
+    return {"eigh_4096_ms": eigh_ms, "eigh_4096_ms_in_batch_of_14": batch_ms,
+            "inv_1440_x20_ms_one_by_one": one_by_one, "inv_1440_x20_ms_batched": batched,
+            "wood_cv_ms": sweep_ms, "wood_cv_tflop": {"sweep": tf32_ops / 1e12,
+                                                      "f32": f32_ops / 1e12},
+            "wood_cv_bound_ms": {
+                "high": 1e3 * (tf32_ops / TF32_PEAK_OPS + f32_ops / FMA_PEAK_OPS["float32"]),
+                "highest": 1e3 * (tf32_ops + f32_ops) / FMA_PEAK_OPS["float32"]}}
+
+
+def phase_encoding(tmp: Path) -> None:
+    """The encoding-score eval through ``run.main`` on its own NSD-count
+    fixture; checks results, rows, scores, devices and route."""
+    import torch
+
+    from visreps_tpu_torch import evals, run
+    from visreps_tpu_torch.analysis import encoding
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.ops import rdm_kernel, ridge
+
+    t0 = time.perf_counter()
+    meta = fixture.ensure_fixture(tmp / "encoding_fixture", **ENCODING)
+    fixture_s = time.perf_counter() - t0
+    os.environ["NSD_DATA_DIR"] = str(Path(meta["pickle"]).parent)
+    os.environ["NSD_STIMULI_HDF5"] = meta["stimuli"]
+    subjects = list(range(ENCODING["n_subjects"]))
+    regions = ["early visual stream", "ventral visual stream"][: ENCODING["n_regions"]]
+
+    calls, tensor_devices, store = Counter(), set(), {}
+    originals = {name: getattr(ridge, name) for name in ("_wood_cv_scores", "_ridge_cv_impl",
+                                                          "_gram_eigh", "_weights")}
+    subjects_fn = encoding.compute_encoding_scores_subjects
+
+    def probe(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            tensor_devices.update(a.device.type for a in args if isinstance(a, torch.Tensor))
+            return originals[name](*args, **kwargs)
+        return call
+
+    def probe_store(subject_inputs, **kwargs):
+        for a_tr, a_te, _, _ in subject_inputs.values():
+            for t in (*a_tr.values(), *a_te.values()):
+                store.setdefault("devices", set()).add(t.device.type)
+                store.setdefault("dtypes", set()).add(str(t.dtype).removeprefix("torch."))
+        return subjects_fn(subject_inputs, **kwargs)
+
+    overrides = [
+        "load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none",
+        "neural_dataset=nsd", "analysis=encoding_score", "encoding_cv_precision=high",
+        f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
+        "bootstrap=true", "n_bootstrap=1000", "srp_k=4096", "extract_pre_and_post=true",
+        "uint8_transfer=true", "log_expdata=true", "batchsize=256", "num_workers=8",
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in originals:
+        setattr(ridge, name, probe(name))
+    encoding.compute_encoding_scores_subjects = probe_store
+    try:
+        rdm_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = run.main(["--mode", "eval", "--config", str(ROOT / "configs/eval/base.json"),
+                            "--override", *overrides])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rdm_launches = rdm_kernel.LAUNCHES
+    finally:
+        for name, fn in originals.items():
+            setattr(ridge, name, fn)
+        encoding.compute_encoding_scores_subjects = subjects_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    n_pairs = len(subjects) * len(regions)
+    if len(results) != n_pairs:
+        raise RuntimeError(f"{len(results)} encoding results, expected {n_pairs}")
+    with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
+        rows = conn.execute("SELECT region, subject_idx, layer, score, ci_low, ci_high "
+                            "FROM results WHERE analysis = 'encoding_score'").fetchall()
+    if len(rows) != n_pairs:
+        raise RuntimeError(f"results.db has {len(rows)} encoding rows, expected {n_pairs}")
+    for r in results:
+        vals = [r["score"], r["ci_low"], r["ci_high"], *r["bootstrap_scores"]]
+        if len(r["layer_selection_scores"]) != 14 or len(r["bootstrap_scores"]) != 1000:
+            raise RuntimeError(f"encoding result without 14 selection / 1000 bootstrap scores")
+        if not all(math.isfinite(v) for v in vals):
+            raise RuntimeError(f"non-finite encoding score or CI in the {r['layer']} result")
+        if not -1.0 <= r["ci_low"] <= r["ci_high"] <= 1.0:
+            raise RuntimeError(f"bad encoding CI [{r['ci_low']}, {r['ci_high']}]")
+    # results are subject-major; one refit job per unique layer of a subject's
+    # regions, predicting all of their voxels
+    job_v = Counter((subjects[i // len(regions)], r["layer"]) for i, r in enumerate(results))
+    jobs = {job: members * ENCODING["n_voxels"] for job, members in job_v.items()}
+    n_sel = len(subjects) * 14
+    problems = []
+    if store.get("devices") != {"cuda"} or tensor_devices != {"cuda"}:
+        problems.append(f"store on {store.get('devices')}, ridge tensors on {tensor_devices}")
+    if calls["_ridge_cv_impl"] or calls["_wood_cv_scores"] != n_sel + len(jobs):
+        problems.append(f"route: {dict(calls)}, expected {n_sel + len(jobs)} Woodbury sweeps "
+                        f"and no per-fold eigh")
+    if rdm_launches:
+        problems.append(f"the encoding eval launched the RDM kernel {rdm_launches} times")
+
+    phases = dict(evals.LAST_PHASE_TIMES)
+    n_train, n_test = ENCODING["n_unique"], ENCODING["n_shared"]
+    n_fit = int(0.8 * n_train)
+    v_all = len(regions) * ENCODING["n_voxels"]
+    sel_fits = [(n_fit, 4096, v_all, n_train - n_fit)] * n_sel
+    refit_fits = [(n_train, 4096, v, n_test) for v in jobs.values()]
+    emit({"phase": "encoding", "seconds": wall, "fixture_s": fixture_s,
+          "n_stimuli": meta["n_stimuli"], "voxels_per_region": ENCODING["n_voxels"],
+          "n_results": len(results), "db_rows": rows,
+          "store": {k: sorted(v) for k, v in store.items()},
+          "ridge_tensor_devices": sorted(tensor_devices), "ridge_calls": dict(calls),
+          "refit_jobs": [[s, l, v] for (s, l), v in jobs.items()], "rdm_launches": rdm_launches,
+          "images_per_s": meta["n_stimuli"] / phases["extraction_s"],
+          "phase_times_s": phases, "encoding_phase_times_s": dict(encoding.LAST_PHASE_TIMES),
+          "selection_ops": {**ops_bound(sel_fits, "high"),
+                            "bound_s_highest": ops_bound(sel_fits, "highest")["bound_s"],
+                            "measured_s": phases["encoding_selection_s"]},
+          "refit_ops": {**ops_bound(refit_fits, "high"),
+                        "bound_s_highest": ops_bound(refit_fits, "highest")["bound_s"],
+                        "measured_s": phases["encoding_refit_s"]},
+          "peak_mem_gb": peak,
+          "scores": [{"layer": r["layer"], "score": r["score"], "ci": [r["ci_low"], r["ci_high"]],
+                      "selection": [e["score"] for e in r["layer_selection_scores"]]}
+                     for r in results], "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    del results
+    torch.cuda.empty_cache()
+    emit({"phase": "encoding_linalg", **time_linalg()})
+
+
+def planted_subject(n_train: int, d: int, seed: int = 0):
+    """One subject's 3 taps and 2 regions' responses, y = tap3·W + noise
+    (numpy RandomState(seed)), split into train and test rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = n_train + ENC_CHECK["n_test"]
+    taps = {f"tap{i + 1}": rng.randn(n, d).astype(np.float32) for i in range(ENC_CHECK["taps"])}
+    ys = {}
+    for region in ("regA", "regB"):
+        w = (rng.randn(d, ENC_CHECK["voxels"]) / np.sqrt(d)).astype(np.float32)
+        ys[region] = taps["tap3"] @ w + rng.randn(n, ENC_CHECK["voxels"]).astype(np.float32)
+    return ({l: a[:n_train] for l, a in taps.items()}, {l: a[n_train:] for l, a in taps.items()},
+            {r: y[:n_train] for r, y in ys.items()}, {r: y[n_train:] for r, y in ys.items()})
+
+
+def compare_encoding(got: dict, ref: dict) -> dict:
+    """Per-region layers and the largest |difference| of scores, CIs and
+    selection scores between two compute_encoding_scores_subject outputs."""
+    out = {"same_layers": all(got[r][0]["layer"] == ref[r][0]["layer"] for r in ref)}
+    for key in ("score", "ci_low", "ci_high"):
+        out[key] = max(abs(got[r][0][key] - ref[r][0][key]) for r in ref)
+    out["selection"] = max(abs(g["score"] - e["score"]) for r in ref for g, e in zip(
+        got[r][0]["layer_selection_scores"], ref[r][0]["layer_selection_scores"]))
+    out["layers"] = [got[r][0]["layer"] for r in ref]
+    return out
+
+
+def phase_encoding_check() -> None:
+    """Card against CPU at "highest", and "high" against "highest" on the
+    card, on both solver routes."""
+    from visreps_tpu_torch.analysis import encoding
+    from visreps_tpu_torch.ops import ridge
+
+    protocol_alphas = ridge.default_alphas
+    determined = protocol_alphas()[protocol_alphas() >= 1]
+
+    def run(data, device, precision):
+        t0 = time.perf_counter()
+        out = encoding.compute_encoding_scores_subject(
+            *data, n_bootstrap=ENC_CHECK["n_bootstrap"], cv_precision=precision, device=device)
+        return out, time.perf_counter() - t0
+
+    failures = []
+    for route, (n_train, d) in ENC_CHECK["routes"].items():
+        if ridge._woodbury_ok(int(0.8 * n_train), d, 5) != (route == "woodbury"):
+            raise RuntimeError(f"({n_train}, {d}) does not take the {route} route")
+        data = planted_subject(n_train, d)
+        rec = {"phase": "encoding_check", "route": route, "n_train": n_train, "d": d}
+        if route == "eigh":  # the protocol's 20 alphas: informational (roundoff-decided)
+            cpu, _ = run(data, "cpu", "highest")
+            rec["all_alphas_cuda_vs_cpu"] = compare_encoding(run(data, "cuda", "highest")[0], cpu)
+        patched = route == "eigh"
+        if patched:
+            ridge.default_alphas = encoding.default_alphas = lambda n=20: determined.copy()
+        try:
+            cpu, rec["cpu_s"] = run(data, "cpu", "highest")
+            highest, rec["cuda_highest_s"] = run(data, "cuda", "highest")
+            high, rec["cuda_high_s"] = run(data, "cuda", "high")
+        finally:
+            if patched:
+                ridge.default_alphas = encoding.default_alphas = protocol_alphas
+        rec["alphas"] = "alphas >= 1" if patched else "logspace(-10, 10, 20)"
+        rec["cuda_vs_cpu"] = compare_encoding(highest, cpu)
+        rec["high_vs_highest"] = compare_encoding(high, highest)
+        emit(rec)
+        c, h = rec["cuda_vs_cpu"], rec["high_vs_highest"]
+        if not (c["same_layers"] and max(c["score"], c["ci_low"], c["ci_high"]) <= ENC_TOL):
+            failures.append(f"{route}: card vs CPU {c} (tolerance {ENC_TOL})")
+        if not (h["same_layers"] and h["score"] <= ENC_HIGH_TOL):
+            failures.append(f"{route}: high vs highest {h} (tolerance {ENC_HIGH_TOL})")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -623,10 +948,12 @@ def main() -> int:
         checkpoint_dir = phase_train(tmp)
         phase_train_step()
         ckpt_launches, ckpt_shapes = phase_e2e_ckpt(meta, checkpoint_dir)
+        launches += ckpt_launches
+        phase_path(shapes + ckpt_shapes, records)
+        phase_encoding(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches += ckpt_launches
-    phase_path(shapes + ckpt_shapes, records)
+    phase_encoding_check()
 
     main_shape = records[0]  # (1000, 4096) f32: phase-1 selection, most launches
     emit({"kernels": [{

@@ -25,7 +25,6 @@ from visreps_tpu.ops.srp import SRPTransform as JaxSRP
 from visreps_tpu.train import checkpoint as jckpt
 
 import visreps_tpu_torch.core.db as tdb
-import visreps_tpu_torch.data.neural as tneural
 import visreps_tpu_torch.evals as tevals
 from visreps_tpu_torch.core.config import Config
 from visreps_tpu_torch.models.convert import srp_from_jax
@@ -137,7 +136,7 @@ def both_evals(tmp_path_factory):
             return ext
 
         mp.setattr(tevals, "configure_feature_extractor", configure_with_jax_srp)
-        mp.setattr(tneural, "NSD_STIMULI_HDF5", meta["hdf5"])
+        mp.setenv("NSD_STIMULI_HDF5", meta["hdf5"])  # the port reads it per call
         mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "torch.db")
         torch_results = tevals.eval(_eval_cfg(Config, checkpoint_dir), device="cpu")
         yield jax_results, torch_results, tmp, stores

@@ -151,7 +151,7 @@ def both_evals(tmp_path_factory):
 
         mp.setattr(tevals, "load_model", load_model)
         mp.setattr(tevals, "configure_feature_extractor", configure_with_jax_srp)
-        mp.setattr(tneural, "NSD_STIMULI_HDF5", meta["hdf5"])
+        mp.setenv("NSD_STIMULI_HDF5", meta["hdf5"])  # the port reads it per call
         mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "torch.db")
         torch_results = tevals.eval(_cfg(Config), device="cpu")
         yield jax_results, torch_results, tmp, stores
@@ -284,7 +284,7 @@ class TestStandalone:
 
     @pytest.mark.parametrize("override,item", [
         ({"neural_dataset": "tvsd"}, "THINGS/TVSD/NSD-synthetic"),
-        ({"analysis": "encoding_score"}, "Encoding"),
+        ({"analysis": "encoding_score", "reconstruct_from_pcs": True}, "Analysis remainder"),
         ({"compare_method": "kendall"}, "Pearson/Kendall scoring"),
         ({"reconstruct_from_pcs": True}, "Analysis remainder"),
         ({"model_name": "VGG16"}, "Remaining models"),

@@ -1,1 +1,2 @@
-"""RSA protocol pieces (phase-1 layer selection)."""
+"""Analysis protocols: RSA phase-1 layer selection, stimulus alignment
+and the encoding score."""

@@ -14,9 +14,10 @@ knobs; the JPEG pool is not written):
 
 Pixels and responses are random (numpy PCG64 seeds 0 and 1) but flow
 through the real loaders. Defaults are the 73k-stimulus NSD scale; the
-``VISREPS_BENCH_*`` variables shrink it. The directory is
-``$VISREPS_BENCH_FIXTURE``, else ``visreps_bench_fixture`` under the
-system temp directory.
+``VISREPS_BENCH_*`` variables shrink it, and ``ensure_fixture``'s
+arguments override them. The directory is the ``fixture_dir`` argument,
+else ``$VISREPS_BENCH_FIXTURE``, else ``visreps_bench_fixture`` under
+the system temp directory.
 
 ``write_imagenet_fixture`` writes an ImageNet in the layout training
 reads (``data/obj_cls.py``): flat ``n0000000k/`` folders of 256 px JPEGs,
@@ -47,64 +48,81 @@ def _env_int(name: str, default: int) -> int:
 N_SHARED = _env_int("VISREPS_BENCH_N_SHARED", 1000)
 N_UNIQUE = _env_int("VISREPS_BENCH_N_UNIQUE", 9000)
 N_SUBJECTS = _env_int("VISREPS_BENCH_N_SUBJECTS", 8)
-REGIONS = ["early", "ventral", "V1", "V2", "V3", "hV4"][: _env_int("VISREPS_BENCH_N_REGIONS", 6)]
+ALL_REGIONS = ["early", "ventral", "V1", "V2", "V3", "hV4"]
+REGIONS = ALL_REGIONS[: _env_int("VISREPS_BENCH_N_REGIONS", 6)]
 N_VOXELS = _env_int("VISREPS_BENCH_N_VOXELS", 512)
 N_STIMULI = N_SHARED + N_SUBJECTS * N_UNIQUE
 IMG_SIZE = _env_int("VISREPS_BENCH_IMG_SIZE", 256)
 
 
-def _write_brick(path: Path):
+def _write_brick(path: Path, n_stimuli: int, img_size: int):
     rng = np.random.Generator(np.random.PCG64(0))
     chunk = 2048  # the JAX writer's draw sizes, so the pixels are identical
     brick = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8,
-                                      shape=(N_STIMULI, IMG_SIZE, IMG_SIZE, 3))
-    for start in range(0, N_STIMULI, chunk):
-        n = min(chunk, N_STIMULI - start)
-        brick[start:start + n] = rng.integers(0, 256, (n, IMG_SIZE, IMG_SIZE, 3), dtype=np.uint8)
+                                      shape=(n_stimuli, img_size, img_size, 3))
+    for start in range(0, n_stimuli, chunk):
+        n = min(chunk, n_stimuli - start)
+        brick[start:start + n] = rng.integers(0, 256, (n, img_size, img_size, 3), dtype=np.uint8)
     brick.flush()
     del brick
 
 
-def _write_pickle(path: Path):
+def _write_pickle(path: Path, n_shared: int, n_unique: int, n_subjects: int, regions: list,
+                  n_voxels: int):
     rng = np.random.Generator(np.random.PCG64(1))
-    shared_ids = list(range(N_SHARED))
+    shared_ids = list(range(n_shared))
     data = {}
-    for region in REGIONS:
+    for region in regions:
         data[region] = {}
-        for subj in range(N_SUBJECTS):
-            unique = list(range(N_SHARED + subj * N_UNIQUE, N_SHARED + (subj + 1) * N_UNIQUE))
+        for subj in range(n_subjects):
+            unique = list(range(n_shared + subj * n_unique, n_shared + (subj + 1) * n_unique))
             ids = shared_ids + unique
             data[region][subj] = {
                 "stimulus": ids,
-                "values": rng.standard_normal((len(ids), N_VOXELS), dtype=np.float32),
+                "values": rng.standard_normal((len(ids), n_voxels), dtype=np.float32),
             }
     with open(path, "wb") as f:
         pickle.dump({"shared_ids": shared_ids, "data": data}, f,
                     protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def ensure_fixture() -> dict:
-    """Create the fixture if absent or at another scale; return its
-    paths ("stimuli": the brick, "pickle": the responses) and scale."""
-    FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
-    meta_path = FIXTURE_DIR / "meta.json"
-    brick = FIXTURE_DIR / "nsd_stimuli.npy"
-    pkl = FIXTURE_DIR / "nsd_data.pkl"
+def ensure_fixture(fixture_dir: str | Path | None = None, n_shared: int | None = None,
+                   n_unique: int | None = None, n_subjects: int | None = None,
+                   n_regions: int | None = None, n_voxels: int | None = None,
+                   img_size: int | None = None) -> dict:
+    """Create the fixture in ``fixture_dir`` if absent or at another scale;
+    return its paths ("stimuli": the brick, "pickle": the responses) and
+    scale. Each argument left None takes the module's value (from the
+    ``VISREPS_BENCH_*`` variables), so one process can hold fixtures of
+    several scales in several directories."""
+    fixture_dir = Path(fixture_dir) if fixture_dir is not None else FIXTURE_DIR
+    n_shared = N_SHARED if n_shared is None else n_shared
+    n_unique = N_UNIQUE if n_unique is None else n_unique
+    n_subjects = N_SUBJECTS if n_subjects is None else n_subjects
+    regions = REGIONS if n_regions is None else ALL_REGIONS[:n_regions]
+    n_voxels = N_VOXELS if n_voxels is None else n_voxels
+    img_size = IMG_SIZE if img_size is None else img_size
+    n_stimuli = n_shared + n_subjects * n_unique
+
+    fixture_dir.mkdir(parents=True, exist_ok=True)
+    meta_path = fixture_dir / "meta.json"
+    brick = fixture_dir / "nsd_stimuli.npy"
+    pkl = fixture_dir / "nsd_data.pkl"
     if meta_path.exists() and brick.exists() and pkl.exists():
         meta = json.loads(meta_path.read_text())
-        if (meta.get("n_stimuli") == N_STIMULI and meta.get("n_subjects") == N_SUBJECTS
-                and meta.get("regions") == REGIONS
-                and meta.get("n_voxels_per_region") == N_VOXELS
-                and meta.get("img_size") == IMG_SIZE):
+        if (meta.get("n_stimuli") == n_stimuli and meta.get("n_subjects") == n_subjects
+                and meta.get("regions") == regions
+                and meta.get("n_voxels_per_region") == n_voxels
+                and meta.get("img_size") == img_size):
             return meta
     t0 = time.time()
-    _write_brick(brick)
-    _write_pickle(pkl)
+    _write_brick(brick, n_stimuli, img_size)
+    _write_pickle(pkl, n_shared, n_unique, n_subjects, regions, n_voxels)
     meta = {
         "stimuli": str(brick), "pickle": str(pkl),
-        "n_stimuli": N_STIMULI, "n_subjects": N_SUBJECTS,
-        "regions": REGIONS, "n_voxels_per_region": N_VOXELS,
-        "img_size": IMG_SIZE, "build_s": round(time.time() - t0, 1),
+        "n_stimuli": n_stimuli, "n_subjects": n_subjects,
+        "regions": regions, "n_voxels_per_region": n_voxels,
+        "img_size": img_size, "build_s": round(time.time() - t0, 1),
     }
     meta_path.write_text(json.dumps(meta))
     return meta

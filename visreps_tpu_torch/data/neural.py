@@ -2,8 +2,10 @@
 ``visreps_tpu/data/neural.py:24-228``: the response adapter, the lazy
 stimulus brick and ``load_all_nsd_data``).
 
-``NSD_STIMULI_HDF5`` names the stimulus brick: NSD's HDF5 file, or a
-``.npy`` array file of the same (N, H, W, 3) uint8 content.
+The ``NSD_STIMULI_HDF5`` environment variable, read when
+``load_all_nsd_data`` is called, names the stimulus brick: NSD's HDF5
+file, or a ``.npy`` array file of the same (N, H, W, 3) uint8 content.
+Unset, the module's ``NSD_STIMULI_HDF5`` default path is used.
 """
 from __future__ import annotations
 
@@ -29,10 +31,8 @@ NSD_REGION_MAP = {
 }
 NSD_SUBJECTS = list(range(8))
 
-NSD_STIMULI_HDF5 = os.environ.get(
-    "NSD_STIMULI_HDF5",
-    "/data/shared/datasets/allen2021.natural_scenes/nsddata_stimuli/stimuli/nsd/nsd_stimuli.hdf5",
-)
+NSD_STIMULI_HDF5 = (
+    "/data/shared/datasets/allen2021.natural_scenes/nsddata_stimuli/stimuli/nsd/nsd_stimuli.hdf5")
 
 
 class ResponseArray:
@@ -157,7 +157,8 @@ def load_all_nsd_data(cfg, subjects=None, regions=None) -> Dict:
         per_subject_test.append({str(int(i)) for i in arr.ids if int(i) in shared})
 
     shared_test_ids = sorted(set.intersection(*per_subject_test), key=int)
-    stimuli = LazyStimulusBrick(NSD_STIMULI_HDF5, "imgBrick", all_ids)
+    brick = os.environ.get("NSD_STIMULI_HDF5", NSD_STIMULI_HDF5)
+    stimuli = LazyStimulusBrick(brick, "imgBrick", all_ids)
     logger.info("Loaded NSD: %d subjects x %d regions, %d stimuli, %d shared test IDs",
                 len(subjects), len(region_pairs), len(stimuli), len(shared_test_ids))
     return {

@@ -1,8 +1,10 @@
-"""NSD RSA evaluation (port of ``visreps_tpu/evals.py:54-66, 96-123,
-143-302, 397-873`` for ``neural_dataset=nsd``, ``analysis=rsa``), of an
-untrained torchvision-architecture model or of a checkpoint.
+"""NSD evaluation (port of ``visreps_tpu/evals.py:54-66, 96-123,
+143-302, 397-873, 1079-1193`` for ``neural_dataset=nsd``) of an
+untrained torchvision-architecture model or of a checkpoint: the RSA
+eval (``analysis=rsa``) or the encoding score (``analysis=encoding_score``).
 
-The two-phase protocol of the reference:
+Both extract every tap once into the SRP store. RSA then runs the
+reference's two-phase protocol:
 
   * phase 1 — per (region, subject), pick the layer whose SRP-activation
     RDM best matches the neural RDM on a seed-42 subsample of
@@ -14,8 +16,11 @@ The two-phase protocol of the reference:
     pairs), saved to results.db.
 
 Every RDM goes through ``ops.rdm.compute_rdm`` — the Hopper kernel on
-the card. Configurations outside this slice raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+the card. Encoding fits ridge regressions on every train row of the
+store (``analysis/encoding.py``, ``ops/ridge.py``), batched per subject
+across regions and layers, with the refits grouped across subjects.
+Configurations outside this slice raise NotImplementedError naming the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -27,6 +32,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from visreps_tpu_torch.analysis import encoding
+from visreps_tpu_torch.analysis.alignment import (
+    align_stimulus_level,
+    compute_traintest_alignment,
+    prepare_traintest_alignment,
+)
 from visreps_tpu_torch.analysis.rsa import select_best_layer, select_scores_multipair
 from visreps_tpu_torch.core.config import Config, get_seed_letter
 from visreps_tpu_torch.core.db import save_results
@@ -42,8 +53,11 @@ from visreps_tpu_torch.ops.rdm import compute_rdm
 
 #: Wall-clock seconds of the last eval's phases: model_load_s,
 #: data_load_s, extraction_s (of which extraction_loader_s waited on the
-#: host loader), phase1_selection_s, phase2_extract_s,
-#: scoring_bootstrap_s. Rewritten by every eval() call.
+#: host loader), then for RSA phase1_selection_s, phase2_extract_s,
+#: scoring_bootstrap_s, and for encoding encoding_s (the whole analysis)
+#: with the encoding module's phases as encoding_{selection,refit,
+#: assemble_bootstrap}_s on the subject-batched path. Rewritten by every
+#: eval() call.
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
@@ -102,24 +116,24 @@ def _check_slice(cfg) -> None:
     if dataset != "nsd":
         raise ValueError(f"Unsupported neural_dataset={dataset!r}")
     analysis = cfg.get("analysis", "rsa").lower()
-    if analysis == "encoding_score":
-        missing("analysis=encoding_score", "Encoding")
-    if analysis != "rsa":
+    if analysis not in ("rsa", "encoding_score"):
         raise ValueError(f"Unknown analysis method: {analysis}")
-    method = cfg.get("compare_method", "spearman").lower()
-    if method != "spearman":
-        missing(f"compare_method={method} scoring", "Pearson/Kendall scoring")
-    if cfg.get("bootstrap_exact_ties", "auto") is False:
-        missing("bootstrap_exact_ties=false (dense-rank bootstrap)", "Pearson/Kendall scoring")
     if cfg.get("reconstruct_from_pcs"):
         missing("reconstruct_from_pcs", "Analysis remainder")
+    if analysis == "rsa":
+        method = cfg.get("compare_method", "spearman").lower()
+        if method != "spearman":
+            missing(f"compare_method={method} scoring", "Pearson/Kendall scoring")
+        if cfg.get("bootstrap_exact_ties", "auto") is False:
+            missing("bootstrap_exact_ties=false (dense-rank bootstrap)", "Pearson/Kendall scoring")
     if (cfg.get("load_model_from") != "checkpoint"
             and cfg.get("model_name", "AlexNet") not in TORCHVISION_RETURN_NODES):
         missing(f"model_name={cfg.get('model_name')}", "Remaining models")
 
 
 def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
-    """Run the NSD RSA eval; returns one result dict per (region, subject).
+    """Run the NSD eval (``cfg.analysis``: rsa or encoding_score); returns
+    one result dict per (region, subject).
 
     ``device`` defaults to CUDA (raising when there is none); pass
     ``"cpu"`` to run on the CPU with the kernel's plain version.
@@ -138,7 +152,8 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     subjects = _listify(cfg.subject_idx)
     regions = _listify(cfg.region)
     seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"
-    rprint(f"\n  RSA eval | cfg{cfg.cfg_id}{seed_letter} epoch {cfg.epoch} | NSD | "
+    analysis = cfg.get("analysis", "rsa").lower()
+    rprint(f"\n  {analysis.upper()} eval | cfg{cfg.cfg_id}{seed_letter} epoch {cfg.epoch} | NSD | "
            f"{len(subjects)} subjects x {len(regions)} regions | seed {cfg.seed} | {device}\n",
            style="info")
 
@@ -163,6 +178,8 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
     LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
     rprint("  Activations extracted once for all subjects/regions", style="success")
+    if analysis == "encoding_score":
+        return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
     return _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose)
 
 
@@ -274,4 +291,59 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
             save_results([result], cfg.merge({"subject_idx": subj, "region": region}))
         all_results.append(result)
     LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
+    return all_results
+
+
+def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device) -> List[Dict]:
+    """Encoding score over every train row of the SRP store ``acts``.
+
+    Batched per SUBJECT across regions and layers
+    (``encoding.compute_encoding_scores_subjects``: one concatenated Y per
+    subject, stacked layer selection, refits grouped across subjects);
+    the per-pair path runs when the regions' stimulus sets differ or
+    ``encoding_batched=false``. Results are in subject-major order on the
+    batched path and region-major on the per-pair one, as in the JAX
+    package, with one results.db row per (region, subject).
+    """
+    t0 = time.perf_counter()
+    neural = all_data["neural"]
+    all_results = []
+    bootstrap = cfg.get("bootstrap", True)
+    n_bootstrap = cfg.get("n_bootstrap", 1000)
+
+    def save(scores, region, subj):
+        if cfg.get("log_expdata"):
+            save_results(scores, cfg.merge({"subject_idx": subj, "region": region}))
+        all_results.extend(scores)
+
+    batched = cfg.get("encoding_batched", True) and all(
+        frozenset(neural[r][subj][split]) == frozenset(neural[regions[0]][subj][split])
+        for subj in subjects for split in ("train", "test") for r in regions)
+    if batched:
+        subject_inputs = {}
+        for subj in subjects:
+            first = neural[regions[0]][subj]
+            train_acts, _, train_ids = align_stimulus_level(acts, first["train"], ids)
+            test_acts, _, test_ids = align_stimulus_level(acts, first["test"], ids)
+            y_train = {r: _neural_tensor(neural[r][subj]["train"], train_ids) for r in regions}
+            y_test = {r: _neural_tensor(neural[r][subj]["test"], test_ids) for r in regions}
+            subject_inputs[subj] = (train_acts, test_acts, y_train, y_test)
+        per_subject = encoding.compute_encoding_scores_subjects(
+            subject_inputs, bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
+            cv_precision=cfg.get("encoding_cv_precision", "high"), device=device)
+        LAST_PHASE_TIMES.update({f"encoding_{k}": v for k, v in encoding.LAST_PHASE_TIMES.items()})
+        for subj in subjects:
+            for region in regions:
+                save(per_subject[subj][region], region, subj)
+    else:
+        for region in regions:
+            rprint(f"\n  -- Region: {region} --", style="info")
+            for subj in subjects:
+                train_data, test_data = prepare_traintest_alignment(
+                    cfg, acts, neural[region][subj], ids)
+                scores = compute_traintest_alignment(cfg, train_data, test_data,
+                                                     verbose=verbose, device=device)
+                del train_data, test_data
+                save(scores, region, subj)
+    LAST_PHASE_TIMES["encoding_s"] = time.perf_counter() - t0
     return all_results

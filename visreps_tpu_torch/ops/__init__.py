@@ -1,2 +1,3 @@
-"""Tensor ops of the eval: rank statistics, RDMs (with the Hopper RDM
-kernel), sparse random projection and grouped bootstrap scoring."""
+"""Tensor ops of the evals: rank statistics, RDMs (with the Hopper RDM
+kernel), sparse random projection, grouped bootstrap scoring, and the
+encoding score's z-norms and ridge regression."""

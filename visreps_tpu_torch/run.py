@@ -3,8 +3,9 @@
 
 Reads the same JSON configs as ``python -m visreps_tpu.run`` (default
 ``configs/{mode}/base.json``) and trains (``--mode train``) or runs the
-NSD RSA eval (``--mode eval``) on the card, or on the CPU with
-``--device cpu``. Validation covers what this port runs.
+NSD eval (``--mode eval``: ``analysis=rsa`` or ``analysis=encoding_score``)
+on the card, or on the CPU with ``--device cpu``. Validation covers what
+this port runs.
 """
 from __future__ import annotations
 
