@@ -9,10 +9,11 @@ non-zero without the final line:
   1. build — compile the RDM kernel (csrc/rdm.cu) from this checkout and
      print ptxas's report of each kernel in it (Gram and reduce).
   2. kernel — the RDM kernel against its plain torch version on the card
-     at the eval's shapes and one ragged shape (n and d not multiples of
-     the tile) (f32 tolerance 1e-5, bf16 3e-3 against the plain version
-     on the same bf16 rows); the output must be exactly symmetric, with
-     an exactly zero diagonal, and bit-identical over two calls. With the
+     at the eval's shapes, one ragged shape (n and d not multiples of
+     the tile), n = 100, below one 128-row tile (TVSD's test set), and
+     THINGS' widest evaluation RDM, (1,484, 193,600) (f32 tolerance 1e-5, bf16 3e-3 against the plain version on the
+     same bf16 rows); the output must be exactly symmetric, with an
+     exactly zero diagonal, and bit-identical over two calls. With the
      kernel's time per call (CUDA events; beside it the host's time to
      enqueue the call, and the device time of the kernel's own launches
      from torch.profiler), the plain version's, one torch.corrcoef call's (the
@@ -47,11 +48,34 @@ non-zero without the final line:
   7. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
      wrote (``load_model_from=checkpoint``, cfg_id 32, epoch 2), with the
      same checks; its rows must carry cfg_id 32 and epoch 2.
-  8. path — the RDM shapes both evals called, with their launch counts
-     and the kernel's time at each: its time on the main path, Σ launches
-     × ms. A shape the kernel phase did not check gets the kernel phase's
-     checks here before it is timed.
-  9. encoding — the NSD encoding-score eval through ``run.main`` at full
+  8. things — the THINGS eval (the JAX bench's stage_things_e2e:
+     untrained AlexNet, 14 taps, SRP k=4096, Spearman, 1000 bootstraps,
+     uint8 transfer, results.db) on a fixture of 1,854 concepts × 14
+     images (25,956 ids over a pool of 4,096 distinct 256 px JPEGs) and
+     66-d embeddings. Checks one result and one results.db row with
+     region and subject "N/A", 14 selection scores, finite scores and
+     1000 bootstrap scores, 370 selection / 1,484 evaluation concepts,
+     the store, the concept means and the selected layer's re-extracted
+     means on the card, and 14 + 1 + 2 RDM launches.
+  9. tvsd — the TVSD eval (stage_tvsd_e2e: n_select 1000, the same
+     width) on 22,248 train + 100 test JPEG ids (the same pool) × 2
+     monkeys × V1/V4/IT × 256 sites. Checks 6 results and rows and
+     S·(14 + R) + U + P = 40 + U launches.
+ 10. nsd_synthetic — the NSD-Synthetic eval (stage_nsd_synthetic_e2e)
+     on 220 PNG stimuli × 8 subjects × 6 regions × 512 voxels, over the
+     results.db the e2e phase wrote: its 4 pairs inherit e2e's selected
+     layers (the chain users run, NSD first), the other 44 are seeded
+     with conv5_post. Checks 48 results and rows, the 4 inherited layers,
+     and U + 48 launches.
+     Each eval phase prints its wall and phase times, extraction images/s
+     with the loader's wait, peak device memory, fixture seconds and the
+     RDM shapes it asked for.
+ 11. path — the RDM shapes every RSA eval called, with their launch
+     counts and the kernel's time at each: its time on the main path, Σ
+     launches × ms. A shape the kernel phase did not check gets the
+     kernel phase's checks here before it is timed, beside the plain
+     version's and torch.corrcoef's times.
+ 12. encoding — the NSD encoding-score eval through ``run.main`` at full
      width (untrained AlexNet, 14 taps, SRP k=4096, uint8 transfer,
      ``encoding_cv_precision=high``, 1000 bootstraps, results.db) on a
      synthetic fixture at NSD's own counts, built in its own directory:
@@ -65,7 +89,7 @@ non-zero without the final line:
      eigh (alone and in a batch of 14), 20 small inverses one by one
      and batched, peak memory, and the operation counts of the
      selection sweep and the refits with their bounds.
- 10. encoding_check — one subject's ``compute_encoding_scores_subject``
+ 13. encoding_check — one subject's ``compute_encoding_scores_subject``
      on planted data (y = tap3·W + noise; 3 taps, 2 regions × 1,000
      voxels, 1,000 test rows) on both solver routes: n_train 6,400 and
      d 512 (Woodbury), n_train 400 and d 512 (per-fold eigh, on the
@@ -75,8 +99,8 @@ non-zero without the final line:
      select the same layers and agree within 1e-4 (scores and CIs); on
      the card ``high`` selects the layers ``highest`` does, with
      |Δscore| ≤ 1e-3.
- 11. kernels — the per-kernel summary line (launches: both RSA evals;
-     the encoding eval launches none).
+ 14. kernels — the per-kernel summary line (launches: the five RSA
+     evals; the encoding eval launches none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -113,9 +137,19 @@ KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas'
     (1000, 512, "float32"),
     (10000, 4096, "float32"), (10000, 4096, "bfloat16"),
     (257, 1031, "float32"), (257, 1031, "bfloat16"),  # ragged n and d: padded stride
+    (100, 4096, "float32"), (100, 4096, "bfloat16"),  # n below one 128-row tile (TVSD test)
+    (100, 1031, "float32"),                           # ... and ragged d
+    (1484, 193600, "float32"),  # THINGS evaluation when conv1 is selected: the widest
 ]
 E2E = {"n_shared": 1000, "n_unique": 1000, "n_subjects": 2, "n_regions": 2,
        "n_voxels": 512, "img_size": 256}
+THINGS = {"n_concepts": 1854, "imgs_per_concept": 14, "n_jpeg": 4096,
+          "img_size": 256}  # stage_things_e2e: 25,956 images, 66-d embeddings
+TVSD = {"n_concepts": 1854, "imgs_per_concept": 12, "n_test": 100, "n_sites": 256,
+        "n_jpeg": 4096, "img_size": 256}  # stage_tvsd_e2e: 22,248 train + 100 test images
+NSD_SYNTHETIC = {"n_stimuli": 220, "n_subjects": 8, "n_regions": 6, "n_voxels": 512,
+                 "img_size": 256}  # stage_nsd_synthetic_e2e
+NSD_REGIONS = ["early visual stream", "ventral visual stream", "V1", "V2", "V3", "hV4"]
 ENCODING = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 2, "n_regions": 2,
             "n_voxels": 7604, "img_size": 256}  # 7,604: the widest NSD ROI of the JAX bench
 ENC_CHECK = {"routes": {"woodbury": (6400, 512), "eigh": (400, 512)},
@@ -343,35 +377,29 @@ def nsd_fixture(tmp: Path) -> dict:
     return meta
 
 
-def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row):
-    """The eval through ``run.main`` on the fixture, with the kernel's
-    launch count set to 0 just before and read just after; checks
-    results, db rows (``db_where`` selects this eval's; ``expect_row``
-    checks each row's (cfg_id, epoch)), finite scores and one launch per
-    RDM. Returns the launches and the count of RDMs at each (n, d, dtype)."""
+def drive(overrides: list[str]) -> dict:
+    """One eval through ``run.main`` with configs/eval/base.json, with the
+    kernel's launch count set to 0 just before and read just after, and
+    the RDM shapes ``compute_rdm`` handed the kernel wrapper counted.
+    Returns the results, the launches, the shapes (a Counter of (n, d,
+    dtype)), the wall seconds, the eval's phase times and the peak
+    device memory (GB)."""
     import torch
 
     from visreps_tpu_torch import evals, run
     from visreps_tpu_torch.ops import rdm as rdm_ops
     from visreps_tpu_torch.ops import rdm_kernel
 
-    shapes = Counter()  # the RDM shapes compute_rdm hands the kernel wrapper
+    shapes = Counter()
     wrapper = rdm_ops.rdm_from_centered
 
     def probe(xc, std, correction=1e-12):
         shapes[(xc.shape[0], xc.shape[1], str(xc.dtype).removeprefix("torch."))] += 1
         return wrapper(xc, std, correction)
 
-    subjects = list(range(E2E["n_subjects"]))
-    regions = ["early visual stream", "ventral visual stream"][: E2E["n_regions"]]
-    overrides = [
-        *source, "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
-        f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
-        "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
-        "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
-        "batchsize=256", "num_workers=8",
-    ]
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rdm_ops.rdm_from_centered = probe
     try:
         rdm_kernel.LAUNCHES = 0
@@ -383,40 +411,85 @@ def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_ro
         launches = rdm_kernel.LAUNCHES
     finally:
         rdm_ops.rdm_from_centered = wrapper
+    return {"results": results, "launches": launches, "shapes": shapes, "seconds": wall,
+            "phases": dict(evals.LAST_PHASE_TIMES),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
-    n_pairs = len(subjects) * len(regions)
-    if len(results) != n_pairs:
-        raise RuntimeError(f"{len(results)} results, expected {n_pairs}")
-    with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
-        rows = conn.execute(f"SELECT cfg_id, epoch FROM results WHERE {db_where}").fetchall()
-    if len(rows) != n_pairs or not all(expect_row(*r) for r in rows):
-        raise RuntimeError(f"results.db rows {rows}, expected {n_pairs} of this eval")
+
+def check_rsa_results(results: list, n_expected: int, n_selection: int) -> None:
+    """``n_expected`` results, each with ``n_selection`` selection scores,
+    a finite score and CIs, 1000 finite bootstrap scores and
+    -1 ≤ ci_low ≤ ci_high ≤ 1."""
+    if len(results) != n_expected:
+        raise RuntimeError(f"{len(results)} results, expected {n_expected}")
     for r in results:
         vals = [r["score"], r["ci_low"], r["ci_high"], *r["bootstrap_scores"]]
         if len(r["bootstrap_scores"]) != 1000 or not all(math.isfinite(v) for v in vals):
-            raise RuntimeError(f"non-finite or missing scores in {r['layer']} result")
+            raise RuntimeError(f"non-finite or missing scores in the {r['layer']} result")
         if not -1.0 <= r["ci_low"] <= r["ci_high"] <= 1.0:
             raise RuntimeError(f"bad CI [{r['ci_low']}, {r['ci_high']}]")
-    taps = [s["layer"] for s in results[0]["layer_selection_scores"]]
-    n_layers = len(taps)
+        if len(r["layer_selection_scores"]) != n_selection:
+            raise RuntimeError(f"{len(r['layer_selection_scores'])} selection scores, "
+                               f"expected {n_selection}")
+
+
+def check_launches(run: dict, expected: int, rule: str) -> None:
+    if run["launches"] != expected or sum(run["shapes"].values()) != expected:
+        raise RuntimeError(f"RDM kernel launched {run['launches']} times in the eval for "
+                           f"{sum(run['shapes'].values())} RDMs, expected {expected} (= {rule})")
+
+
+def db_rows(where: str) -> list:
+    with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
+        return conn.execute("SELECT region, subject_idx, layer, cfg_id, epoch FROM results "
+                            f"WHERE {where}").fetchall()
+
+
+def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra) -> dict:
+    """The line each eval phase prints: wall and phase times, extraction
+    images/s and the loader's wait, peak memory, fixture seconds, the
+    kernel's launches and the RDM shapes asked for."""
+    phases = run["phases"]
+    rec = {"phase": phase, "seconds": run["seconds"], "fixture_s": fixture_s,
+           "n_images": n_images, "n_results": len(run["results"]),
+           "rdm_launches": run["launches"],
+           "rdm_shapes": [[*k, v] for k, v in sorted(run["shapes"].items())],
+           "phase_times_s": phases, "peak_mem_gb": run["peak_mem_gb"], **extra}
+    if "extraction_s" in phases:
+        rec["images_per_s"] = n_images / phases["extraction_s"]
+        rec["loader_wait_s"] = phases["extraction_loader_s"]
+    rec["scores"] = [{"layer": r["layer"], "score": r["score"], "ci": [r["ci_low"], r["ci_high"]]}
+                     for r in run["results"]]
+    emit(rec)
+    return rec
+
+
+def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row):
+    """The NSD RSA eval on the fixture (``drive``); checks results, db rows
+    (``db_where`` selects this eval's; ``expect_row`` checks each row's
+    (cfg_id, epoch)), finite scores and one launch per RDM. Returns the
+    run (``drive``'s dict)."""
+    subjects = list(range(E2E["n_subjects"]))
+    regions = NSD_REGIONS[: E2E["n_regions"]]
+    run = drive([
+        *source, "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
+        f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
+        "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
+        "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
+        "batchsize=256", "num_workers=8",
+    ])
+    results = run["results"]
+    n_pairs = len(subjects) * len(regions)
+    check_rsa_results(results, n_pairs, 14)
+    rows = db_rows(db_where)
+    if len(rows) != n_pairs or not all(expect_row(*r[3:]) for r in rows):
+        raise RuntimeError(f"results.db rows {rows}, expected {n_pairs} of this eval")
     unique_layers = len({r["layer"] for r in results})
-    expected = len(subjects) * (n_layers + len(regions)) + unique_layers + n_pairs
-    if launches != expected or sum(shapes.values()) != expected:
-        raise RuntimeError(f"RDM kernel launched {launches} times in the eval for "
-                           f"{sum(shapes.values())} RDMs, expected {expected} "
-                           f"(= S·(taps + R) + unique layers + pairs)")
-    phases = dict(evals.LAST_PHASE_TIMES)
-    emit({"phase": phase, "seconds": wall, "fixture_s": meta["fixture_s"],
-          "n_stimuli": meta["n_stimuli"], "n_results": len(results), "db_rows": rows,
-          "taps": taps, "unique_layers": unique_layers,
-          "rdm_launches": launches, "rdm_launches_expected": expected,
-          "rdm_shapes": [[*k, v] for k, v in sorted(shapes.items())],
-          "images_per_s": meta["n_stimuli"] / phases["extraction_s"],
-          "phase_times_s": phases,
-          "scores": [{"layer": r["layer"], "score": r["score"], "ci": [r["ci_low"], r["ci_high"]]}
-                     for r in results],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, shapes
+    check_launches(run, len(subjects) * (14 + len(regions)) + unique_layers + n_pairs,
+                   "S·(taps + R) + unique layers + pairs")
+    eval_record(phase, run, meta["n_stimuli"], meta["fixture_s"], db_rows=rows,
+                unique_layers=unique_layers)
+    return run
 
 
 def phase_e2e(meta: dict):
@@ -434,6 +507,174 @@ def phase_e2e_ckpt(meta: dict, checkpoint_dir: str):
         f"checkpoint_model=checkpoint_epoch_{TRAIN['epochs']}.pth"],
         f"cfg_id = {TRAIN['pca_n_classes']}",
         lambda cfg_id, epoch: cfg_id == TRAIN["pca_n_classes"] and epoch == TRAIN["epochs"])
+
+
+RSA_OVERRIDES = ["load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none",
+                 "analysis=rsa", "compare_method=spearman", "bootstrap=true",
+                 "n_bootstrap=1000", "srp_k=4096", "extract_pre_and_post=true",
+                 "log_expdata=true", "num_workers=16"]
+
+
+def phase_things(tmp: Path) -> dict:
+    """The THINGS eval (stage_things_e2e's configuration) on its fixture:
+    1,854 concepts × 14 JPEGs, 66-d embeddings. Checks one result and one
+    results.db row with region and subject "N/A", 14 selection scores,
+    finite scores and 1000 bootstrap scores, 370 selection and 1,484
+    evaluation concepts, the store, the concept means and the selected
+    layer's re-extracted means on the card, and 14 + 1 + 2 RDM launches."""
+    import torch
+
+    from visreps_tpu_torch import evals
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.models.extractor import FeatureExtractor
+
+    t0 = time.perf_counter()
+    meta = fixture.ensure_things_fixture(tmp / "fixture", **THINGS)
+    fixture_s = time.perf_counter() - t0
+    seen = Counter()
+    originals = {"prepare": evals.prepare_concept_alignment,
+                 "align": evals.compute_traintest_alignment,
+                 "mean": FeatureExtractor.extract_single_layer_mean,
+                 "single": FeatureExtractor.extract_single_layer}
+
+    def prepare(cfg, acts, *args):
+        seen.update(f"store {a.device.type} {a.dtype}" for a in acts.values())
+        out = originals["prepare"](cfg, acts, *args)
+        seen.update(f"concept means {a.device.type} {a.dtype}" for a in out.activations.values())
+        return out
+
+    def align(cfg, selection, evaluation, **kwargs):
+        seen[f"concepts {selection.neural.shape[0]} / {evaluation.neural.shape[0]}"] += 1
+        return originals["align"](cfg, selection, evaluation, **kwargs)
+
+    def mean(self, *args, **kwargs):
+        out = originals["mean"](self, *args, **kwargs)
+        seen[f"re-extracted means {out[0].device.type} {tuple(out[0].shape)}"] += 1
+        return out
+
+    def single(self, *args, **kwargs):
+        seen["host re-extraction"] += 1
+        return originals["single"](self, *args, **kwargs)
+
+    cwd = os.getcwd()
+    os.chdir(meta["root"])  # the loader reads datasets/neural/things/ relative to it
+    evals.prepare_concept_alignment, evals.compute_traintest_alignment = prepare, align
+    FeatureExtractor.extract_single_layer_mean = mean
+    FeatureExtractor.extract_single_layer = single
+    try:
+        run = drive([*RSA_OVERRIDES, "neural_dataset=things-behavior", "uint8_transfer=true",
+                     "batchsize=512"])
+    finally:
+        os.chdir(cwd)
+        evals.prepare_concept_alignment = originals["prepare"]
+        evals.compute_traintest_alignment = originals["align"]
+        FeatureExtractor.extract_single_layer_mean = originals["mean"]
+        FeatureExtractor.extract_single_layer = originals["single"]
+    check_rsa_results(run["results"], 1, 14)
+    rows = db_rows("neural_dataset = 'things-behavior'")
+    problems = []
+    if len(rows) != 1 or rows[0][:2] != ("N/A", "N/A"):
+        problems.append(f"results.db rows {rows}, expected one with region and subject N/A")
+    expected_seen = {"store cuda torch.bfloat16": 14, "concept means cuda torch.float32": 14,
+                     "concepts 370 / 1484": 1}
+    on_card = sum(v for k, v in seen.items() if k.startswith("re-extracted means cuda (1484,"))
+    if any(seen[k] != v for k, v in expected_seen.items()) or on_card != 1 \
+            or seen["host re-extraction"]:
+        problems.append(f"store, means or concepts off the card or miscounted: {dict(seen)}")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    check_launches(run, 14 + 1 + 2, "14 selection + 1 embedding + 2 evaluation RDMs")
+    eval_record("things", run, meta["n_images"], fixture_s, n_concepts=meta["n_concepts"],
+                n_jpeg=meta["n_jpeg"], db_rows=rows, probes=dict(seen))
+    return run
+
+
+def phase_tvsd(tmp: Path) -> dict:
+    """The TVSD eval (stage_tvsd_e2e's configuration): 22,248 train + 100
+    test JPEGs, 2 monkeys × V1/V4/IT × 256 sites, n_select 1000. Checks 6
+    results and 6 rows and S·(14 + R) + U + P RDM launches."""
+    from visreps_tpu_torch.benchmarks import fixture
+
+    t0 = time.perf_counter()
+    meta = fixture.ensure_tvsd_fixture(tmp / "fixture", **TVSD)
+    fixture_s = time.perf_counter() - t0
+    cwd, home = os.getcwd(), os.environ.get("BONNER_DATASETS_HOME")
+    os.chdir(meta["root"])  # the loader reads datasets/neural/tvsd/ relative to it
+    os.environ["BONNER_DATASETS_HOME"] = meta["bonner_home"]
+    try:
+        run = drive([*RSA_OVERRIDES, "neural_dataset=tvsd", "subject_idx=[0,1]",
+                     'region=["V1","V4","IT"]', "n_select=1000", "uint8_transfer=true",
+                     "batchsize=512"])
+    finally:
+        os.chdir(cwd)
+        if home is None:
+            os.environ.pop("BONNER_DATASETS_HOME", None)
+        else:
+            os.environ["BONNER_DATASETS_HOME"] = home
+    check_rsa_results(run["results"], 6, 14)
+    rows = db_rows("neural_dataset = 'tvsd'")
+    if len(rows) != 6:
+        raise RuntimeError(f"results.db has {len(rows)} TVSD rows, expected 6")
+    unique_layers = len({r["layer"] for r in run["results"]})
+    check_launches(run, 2 * (14 + 3) + unique_layers + 6, "S·(taps + R) + U + P, S 2, R 3, P 6")
+    eval_record("tvsd", run, meta["n_train"] + meta["n_test"], fixture_s,
+                n_jpeg=meta["n_jpeg"], unique_layers=unique_layers, db_rows=rows)
+    return run
+
+
+def phase_nsd_synthetic(tmp: Path, e2e_results: list) -> dict:
+    """The NSD-Synthetic eval (stage_nsd_synthetic_e2e's configuration):
+    220 PNG stimuli × 8 subjects × 6 regions × 512 voxels, over the
+    results.db the e2e phase wrote. Its 4 pairs (subjects 0–1 × early and
+    ventral) inherit e2e's selected layers; the other 44 are seeded with
+    conv5_post as the JAX stage seeds them. Checks 48 results and rows,
+    the 4 inherited layers, and U + 48 RDM launches."""
+    from visreps_tpu_torch import run as run_mod
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.core.config import load_config
+    from visreps_tpu_torch.core.db import save_results
+
+    t0 = time.perf_counter()
+    meta = fixture.ensure_nsd_synthetic_fixture(tmp / "fixture", **NSD_SYNTHETIC)
+    fixture_s = time.perf_counter() - t0
+    os.environ["NSD_SYNTHETIC_DATA_DIR"] = meta["root"]
+    subjects = list(range(NSD_SYNTHETIC["n_subjects"]))
+    overrides = [*RSA_OVERRIDES, "neural_dataset=nsd_synthetic", "batchsize=256",
+                 f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(NSD_REGIONS)}"]
+    cfg = run_mod.validate_config(load_config(ROOT / "configs/eval/base.json",
+                                              [*overrides, "mode=eval"]))
+    cfg.epoch, cfg.cfg_id = -1, "untrained"  # as the eval sets them for torchvision
+    e2e_pairs = [(r, s) for r in NSD_REGIONS[: E2E["n_regions"]] for s in range(E2E["n_subjects"])]
+    inherited = {pair: r["layer"] for pair, r in zip(e2e_pairs, e2e_results)}
+    for region in NSD_REGIONS:
+        for subj in subjects:
+            if (region, subj) not in inherited:
+                save_results([{"layer": "conv5_post", "compare_method": "spearman", "score": 0.5,
+                               "ci_low": 0.45, "ci_high": 0.55, "analysis": "rsa",
+                               "layer_selection_scores": []}],
+                             cfg.merge({"neural_dataset": "nsd", "analysis": "rsa",
+                                        "subject_idx": subj, "region": region}))
+    run = drive(overrides)
+    results = run["results"]
+    check_rsa_results(results, 48, 0)
+    pairs = [(r, s) for r in NSD_REGIONS for s in subjects]
+    got = {pair: r["layer"] for pair, r in zip(pairs, results)}
+    rows = db_rows("neural_dataset = 'nsd_synthetic'")
+    problems = []
+    if any(got[p] != layer for p, layer in inherited.items()):
+        problems.append(f"inherited layers {[got[p] for p in inherited]}, e2e selected "
+                        f"{list(inherited.values())}")
+    if any(got[p] != "conv5_post" for p in pairs if p not in inherited):
+        problems.append("a seeded pair did not score conv5_post")
+    if len(rows) != 48:
+        problems.append(f"results.db has {len(rows)} NSD-Synthetic rows, expected 48")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    unique_layers = len(set(got.values()))
+    check_launches(run, unique_layers + 48, "U + P, P 48")
+    eval_record("nsd_synthetic", run, meta["n_stimuli"], fixture_s, unique_layers=unique_layers,
+                inherited={f"{r}|{s}": layer for (r, s), layer in inherited.items()})
+    return run
 
 
 def custom_cnn_forward_flops(num_classes: int, size: int = 224) -> float:
@@ -607,10 +848,11 @@ def phase_train_step():
 
 
 def phase_path(shapes: Counter, records: list) -> float:
-    """The kernel's time on the main path: at each RDM shape the eval
+    """The kernel's time on the main path: at each RDM shape the evals
     asked for, its launches there times its ms per call. A shape the
     kernel phase did not check is checked here as there (``check_kernel``)
-    and timed; its max |err| joins ``records``' in the summary line."""
+    and timed, with the plain version's and torch.corrcoef's times; its
+    max |err| joins ``records``' in the summary line."""
     import torch
 
     seen = {(r["n"], r["d"], r["dtype"]): r for r in records}
@@ -619,14 +861,22 @@ def phase_path(shapes: Counter, records: list) -> float:
     for (n, d, dtype), count in sorted(shapes.items()):
         rec = seen.get((n, d, dtype))
         if rec is None:
+            from visreps_tpu_torch.ops import rdm_kernel
+
             xin, std = random_rows(n, d, dtype, gen)
+            iters = timing_iters(n, d)
             rec = {"n": n, "d": d, "dtype": dtype, "max_abs_err": check_kernel(xin, std),
-                   "tol": TOL[dtype], "ms": time_kernel(xin, std)[0], **launch_plan(xin)}
+                   "tol": TOL[dtype], "ms": time_kernel(xin, std)[0],
+                   "plain_ms": time_ms(lambda: rdm_kernel.rdm_from_centered_reference(xin, std),
+                                       iters)[0],
+                   "library_ms": time_ms(lambda: torch.corrcoef(xin), iters)[0],
+                   **launch_plan(xin)}
             del xin, std
             torch.cuda.empty_cache()
         rows.append({"n": n, "d": d, "dtype": dtype, "launches": count,
                      "checked_here": (n, d, dtype) not in seen,
-                     **{k: rec[k] for k in ("ms", "max_abs_err", "tol", "tiles", "splits")},
+                     **{k: rec[k] for k in ("ms", "plain_ms", "library_ms", "max_abs_err", "tol",
+                                            "tiles", "splits")},
                      **bound(n, d, dtype)})
     total = sum(r["launches"] * r["ms"] for r in rows)
     emit({"phase": "path", "shapes": rows, "kernel_ms_on_path": total,
@@ -944,16 +1194,19 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="visreps_chip_smoke_"))
     try:
         meta = nsd_fixture(tmp)
-        launches, shapes = phase_e2e(meta)
+        rsa_runs = [phase_e2e(meta)]
         checkpoint_dir = phase_train(tmp)
         phase_train_step()
-        ckpt_launches, ckpt_shapes = phase_e2e_ckpt(meta, checkpoint_dir)
-        launches += ckpt_launches
-        phase_path(shapes + ckpt_shapes, records)
+        rsa_runs.append(phase_e2e_ckpt(meta, checkpoint_dir))
+        rsa_runs.append(phase_things(tmp))
+        rsa_runs.append(phase_tvsd(tmp))
+        rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
+        phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_encoding_check()
+    launches = sum(r["launches"] for r in rsa_runs)
 
     main_shape = records[0]  # (1000, 4096) f32: phase-1 selection, most launches
     emit({"kernels": [{

@@ -283,7 +283,8 @@ class TestStandalone:
                                 device="cpu").srp.device == torch.device("cpu")
 
     @pytest.mark.parametrize("override,item", [
-        ({"neural_dataset": "tvsd"}, "THINGS/TVSD/NSD-synthetic"),
+        ({"neural_dataset": "things-behavior", "bootstrap_exact_ties": False},
+         "Pearson/Kendall scoring"),
         ({"analysis": "encoding_score", "reconstruct_from_pcs": True}, "Analysis remainder"),
         ({"compare_method": "kendall"}, "Pearson/Kendall scoring"),
         ({"reconstruct_from_pcs": True}, "Analysis remainder"),

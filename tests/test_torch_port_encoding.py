@@ -384,8 +384,12 @@ class TestEncodingFunctions:
             compute_traintest_alignment(Config({"analysis": "encoding_score",
                                                 "neural_dataset": "things-behavior"}),
                                         train, test, device="cpu")
-        with pytest.raises(NotImplementedError, match="THINGS/TVSD/NSD-synthetic"):
-            compute_traintest_alignment(Config({"analysis": "rsa"}), train, test, device="cpu")
+        with pytest.raises(NotImplementedError, match="Pearson/Kendall scoring"):
+            compute_traintest_alignment(Config({"analysis": "rsa", "bootstrap_exact_ties": False}),
+                                        train, test, device="cpu")
+        rsa = compute_traintest_alignment(Config({"analysis": "rsa", "bootstrap": False}),
+                                          train, test, device="cpu")
+        assert len(rsa) == 1 and rsa[0]["layer"] in tr and rsa[0]["analysis"] == "rsa"
         with pytest.raises(ValueError, match="Unknown analysis"):
             compute_traintest_alignment(Config({"analysis": "cka"}), train, test, device="cpu")
         with pytest.raises(ValueError, match="device"):

@@ -151,7 +151,10 @@ class TestKernelPlanAndLayout:
     wrapper's checks, and the 3xTF32 arithmetic of its f32 route."""
 
     SHAPES = [(1000, 4096), (1000, 193600), (1000, 512), (1000, 1000), (10000, 4096),
-              (257, 1031), (129, 1), (1900, 193600), (40, 2048)]
+              (257, 1031), (129, 1), (1900, 193600), (40, 2048),
+              # THINGS, TVSD and NSD-Synthetic: n below one tile, d narrower than a split
+              (100, 4096), (100, 193600), (100, 256), (100, 1031), (220, 512), (370, 4096),
+              (1484, 66), (1484, 193600)]
     SMS = 132  # an H100 SXM; on the card the wrapper passes the device's own count
 
     @pytest.mark.parametrize("n,d", SHAPES)
@@ -188,7 +191,17 @@ class TestKernelPlanAndLayout:
         if sms == 132:
             assert p.tiles * p.splits % sms == 0  # 11 splits: 3 full waves
 
-    @pytest.mark.parametrize("d", [1031, 1])
+    @pytest.mark.parametrize("d,splits", [(4096, 8), (193600, 16), (1031, 2), (256, 1),
+                                          (66, 1)])
+    def test_plan_below_one_tile(self, d, splits):
+        """n = 100 (TVSD's test set): one 128-row tile, taller than the
+        tensor (TMA fills rows 100..127 with zeros and the stores are
+        masked), the d splits filling as many SMs as d allows."""
+        p = rdm_kernel.plan(100, d, 4, self.SMS)
+        assert (p.tiles, p.n_pad, p.grid, p.splits) == (1, 128, (1, splits), splits)
+        assert p.workspace == (None if splits == 1 else (splits, 128, 128))
+
+    @pytest.mark.parametrize("d", [1031, 1, 66])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_padding_keeps_the_rdm(self, rng, d, dtype):
         xc, std = _centered(rng.randn(33, d).astype(np.float32))

@@ -1,2 +1,2 @@
-"""Analysis protocols: RSA phase-1 layer selection, stimulus alignment
-and the encoding score."""
+"""Analysis protocols: RSA layer selection and the train/test RSA
+protocol, stimulus and concept alignment, and the encoding score."""

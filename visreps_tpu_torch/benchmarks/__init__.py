@@ -1,1 +1,2 @@
-"""On-disk synthetic NSD fixture for exercising the eval end to end."""
+"""On-disk synthetic fixtures (NSD, THINGS, TVSD, NSD-Synthetic,
+ImageNet) for exercising the evals and training end to end."""

@@ -1,8 +1,9 @@
-"""Synthetic fixtures on disk: NSD for the eval, ImageNet for training.
+"""Synthetic fixtures on disk: NSD, THINGS, TVSD and NSD-Synthetic for
+the evals, ImageNet for training.
 
 The NSD fixture is the port of ``ensure_fixture`` in
 ``visreps_tpu/benchmarks/fixture.py`` (same content, seeds and env
-knobs; the JPEG pool is not written):
+knobs; the JPEG pool is written only by the fixtures that read it):
 
   * nsd_stimuli.npy — uint8 (N_STIMULI, IMG_SIZE, IMG_SIZE, 3), the
     pixels of the JAX fixture's HDF5 "imgBrick", stored as a numpy array
@@ -18,6 +19,26 @@ through the real loaders. Defaults are the 73k-stimulus NSD scale; the
 arguments override them. The directory is the ``fixture_dir`` argument,
 else ``$VISREPS_BENCH_FIXTURE``, else ``visreps_bench_fixture`` under
 the system temp directory.
+
+The THINGS, TVSD and NSD-Synthetic fixtures are the ports of
+``ensure_things_fixture``, ``ensure_tvsd_fixture`` and
+``ensure_nsd_synthetic_fixture`` there (same seeds, ids and layouts):
+
+  * jpeg/ — a pool of ``n_jpeg`` JPEGs (PCG64 seed 2: 64 noise images,
+    file i the (i mod 64)-th rolled by i pixels); THINGS and TVSD ids
+    point at pool files in turn, so decode work scales with the ids
+    while only the pool is written;
+  * things_root/datasets/neural/things/things_split.pkl — 66-d concept
+    embeddings (seed 3), per-concept image ids and their paths;
+    ``load_things_data`` reads it relative to the working directory;
+  * tvsd_root/ — datasets/neural/tvsd/fmri_responses.pkl (2 monkeys ×
+    V1/V4/IT, seed 4) and bonner/hebart2019.things/images/... symlinks
+    into the pool (``BONNER_DATASETS_HOME`` = ``tvsd_root/bonner``);
+  * nsd_synthetic/ — nsd_synthetic_data.pkl and stimuli/<name>.png
+    (seed 5), read from ``NSD_SYNTHETIC_DATA_DIR``.
+
+Each takes its directory and scale as arguments; left None they take
+the ``VISREPS_BENCH_*`` defaults.
 
 ``write_imagenet_fixture`` writes an ImageNet in the layout training
 reads (``data/obj_cls.py``): flat ``n0000000k/`` folders of 256 px JPEGs,
@@ -53,6 +74,15 @@ REGIONS = ALL_REGIONS[: _env_int("VISREPS_BENCH_N_REGIONS", 6)]
 N_VOXELS = _env_int("VISREPS_BENCH_N_VOXELS", 512)
 N_STIMULI = N_SHARED + N_SUBJECTS * N_UNIQUE
 IMG_SIZE = _env_int("VISREPS_BENCH_IMG_SIZE", 256)
+N_JPEG = _env_int("VISREPS_BENCH_N_JPEG", 8192)
+THINGS_CONCEPTS = _env_int("VISREPS_BENCH_THINGS_CONCEPTS", 1854)
+THINGS_IMGS_PER_CONCEPT = _env_int("VISREPS_BENCH_THINGS_IPC", 14)  # 25,956 images
+THINGS_EMB_DIM = 66
+TVSD_CONCEPTS = _env_int("VISREPS_BENCH_TVSD_CONCEPTS", 1854)
+TVSD_IMGS_PER_CONCEPT = _env_int("VISREPS_BENCH_TVSD_IPC", 12)  # 22,248 train images
+TVSD_N_TEST = _env_int("VISREPS_BENCH_TVSD_N_TEST", 100)
+TVSD_N_SITES = _env_int("VISREPS_BENCH_TVSD_N_SITES", 256)
+NSDSYN_N_STIMULI = _env_int("VISREPS_BENCH_NSDSYN_N", 220)
 
 
 def _write_brick(path: Path, n_stimuli: int, img_size: int):
@@ -125,6 +155,178 @@ def ensure_fixture(fixture_dir: str | Path | None = None, n_shared: int | None =
         "img_size": img_size, "build_s": round(time.time() - t0, 1),
     }
     meta_path.write_text(json.dumps(meta))
+    return meta
+
+
+def _meta_matches(meta_path: Path, **expected) -> dict | None:
+    """The fixture's meta.json when it records ``expected``, else None."""
+    if not meta_path.exists():
+        return None
+    meta = json.loads(meta_path.read_text())
+    return meta if all(meta.get(k) == v for k, v in expected.items()) else None
+
+
+def ensure_jpeg_pool(fixture_dir: Path, n_jpeg: int, img_size: int) -> list[Path]:
+    """The JAX fixture's JPEG pool (``img_{i:05d}.jpg``, i < n_jpeg, under
+    ``fixture_dir/jpeg``), written with 8 threads unless present at this
+    count and size; returns the files in name order."""
+    from PIL import Image
+
+    root = fixture_dir / "jpeg"
+    paths = [root / f"img_{i:05d}.jpg" for i in range(n_jpeg)]
+    if _meta_matches(root / "meta.json", n_jpeg=n_jpeg, img_size=img_size):
+        return paths
+    root.mkdir(parents=True, exist_ok=True)
+    base = np.random.Generator(np.random.PCG64(2)).integers(
+        0, 256, (64, img_size, img_size, 3), dtype=np.uint8)
+
+    def write(i):
+        # each file differs a little, so decoders cannot deduplicate them
+        arr = np.roll(base[i % 64], shift=i % img_size, axis=1)
+        Image.fromarray(arr).save(paths[i], quality=85)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, range(n_jpeg)))
+    (root / "meta.json").write_text(json.dumps({"n_jpeg": n_jpeg, "img_size": img_size}))
+    return paths
+
+
+def ensure_things_fixture(fixture_dir: str | Path | None = None, n_concepts: int | None = None,
+                          imgs_per_concept: int | None = None, n_jpeg: int | None = None,
+                          img_size: int | None = None) -> dict:
+    """THINGS: ``things_split.pkl`` (66-d concept embeddings, per-concept
+    image ids ``concept{c:04d}_{i:02d}`` and their pool paths) under
+    ``things_root/`` (chdir there: the loader reads a relative path);
+    returns its meta ("root", counts, "build_s")."""
+    fixture_dir = Path(fixture_dir) if fixture_dir is not None else FIXTURE_DIR
+    n_concepts = THINGS_CONCEPTS if n_concepts is None else n_concepts
+    ipc = THINGS_IMGS_PER_CONCEPT if imgs_per_concept is None else imgs_per_concept
+    n_jpeg = N_JPEG if n_jpeg is None else n_jpeg
+    img_size = IMG_SIZE if img_size is None else img_size
+    root = fixture_dir / "things_root"
+    scale = {"n_concepts": n_concepts, "n_images": n_concepts * ipc, "n_jpeg": n_jpeg,
+             "img_size": img_size}
+    meta = _meta_matches(root / "meta.json", **scale)
+    if meta:
+        return meta
+    t0 = time.time()
+    pool = [str(p) for p in ensure_jpeg_pool(fixture_dir, n_jpeg, img_size)]
+    rng = np.random.Generator(np.random.PCG64(3))
+    embeddings, image_ids, image_paths = {}, {}, {}
+    k = 0
+    for c in range(n_concepts):
+        concept = f"concept{c:04d}"
+        embeddings[concept] = rng.standard_normal(THINGS_EMB_DIM).astype(np.float32)
+        image_ids[concept] = [f"{concept}_{i:02d}" for i in range(ipc)]
+        for sid in image_ids[concept]:
+            image_paths[sid] = pool[k % len(pool)]
+            k += 1
+    pkl_dir = root / "datasets" / "neural" / "things"
+    pkl_dir.mkdir(parents=True, exist_ok=True)
+    with open(pkl_dir / "things_split.pkl", "wb") as f:
+        pickle.dump({"embeddings": embeddings, "image_ids": image_ids,
+                     "image_paths": image_paths}, f, protocol=pickle.HIGHEST_PROTOCOL)
+    meta = {"root": str(root), **scale, "build_s": round(time.time() - t0, 1)}
+    (root / "meta.json").write_text(json.dumps(meta))
+    return meta
+
+
+def ensure_tvsd_fixture(fixture_dir: str | Path | None = None, n_concepts: int | None = None,
+                        imgs_per_concept: int | None = None, n_test: int | None = None,
+                        n_sites: int | None = None, n_jpeg: int | None = None,
+                        img_size: int | None = None) -> dict:
+    """TVSD: ``fmri_responses.pkl`` (2 monkeys × V1/V4/IT, train ids
+    ``concept{c:04d}_{i:02d}``, test ids ``testconcept{j:04d}_00``,
+    ``n_sites`` responses each) under ``tvsd_root/`` (chdir there), and
+    THINGS-layout symlinks into the JPEG pool under ``tvsd_root/bonner``
+    (the meta's "bonner_home", for ``BONNER_DATASETS_HOME``)."""
+    fixture_dir = Path(fixture_dir) if fixture_dir is not None else FIXTURE_DIR
+    n_concepts = TVSD_CONCEPTS if n_concepts is None else n_concepts
+    ipc = TVSD_IMGS_PER_CONCEPT if imgs_per_concept is None else imgs_per_concept
+    n_test = TVSD_N_TEST if n_test is None else n_test
+    n_sites = TVSD_N_SITES if n_sites is None else n_sites
+    n_jpeg = N_JPEG if n_jpeg is None else n_jpeg
+    img_size = IMG_SIZE if img_size is None else img_size
+    root = fixture_dir / "tvsd_root"
+    n_train = n_concepts * ipc
+    scale = {"n_train": n_train, "n_test": n_test, "n_sites": n_sites, "n_jpeg": n_jpeg,
+             "img_size": img_size}
+    meta = _meta_matches(root / "meta.json", **scale)
+    if meta:
+        return meta
+    t0 = time.time()
+    pool = ensure_jpeg_pool(fixture_dir, n_jpeg, img_size)
+    train_ids = [f"concept{c:04d}_{i:02d}" for c in range(n_concepts) for i in range(ipc)]
+    test_ids = [f"testconcept{j:04d}_00" for j in range(n_test)]
+    objects = root / "bonner" / "hebart2019.things" / "images" / "object_images"
+    for k, sid in enumerate(train_ids + test_ids):
+        d = objects / "_".join(sid.split("_")[:-1])
+        d.mkdir(parents=True, exist_ok=True)
+        link = d / f"{sid}.jpg"
+        if link.is_symlink() or link.exists():
+            link.unlink()
+        os.symlink(pool[k % len(pool)], link)
+
+    rng = np.random.Generator(np.random.PCG64(4))
+    data = {}
+    for region in ("V1", "V4", "IT"):
+        data[region] = {}
+        for subj in (0, 1):
+            data[region][subj] = {
+                "train": {"stimulus": list(train_ids),
+                          "values": rng.standard_normal((n_train, n_sites)).astype(np.float32)},
+                "test": {"stimulus": list(test_ids),
+                         "values": rng.standard_normal((n_test, n_sites)).astype(np.float32)},
+            }
+    pkl_dir = root / "datasets" / "neural" / "tvsd"
+    pkl_dir.mkdir(parents=True, exist_ok=True)
+    with open(pkl_dir / "fmri_responses.pkl", "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    meta = {"root": str(root), "bonner_home": str(root / "bonner"), **scale,
+            "build_s": round(time.time() - t0, 1)}
+    (root / "meta.json").write_text(json.dumps(meta))
+    return meta
+
+
+def ensure_nsd_synthetic_fixture(fixture_dir: str | Path | None = None,
+                                 n_stimuli: int | None = None, n_subjects: int | None = None,
+                                 n_regions: int | None = None, n_voxels: int | None = None,
+                                 img_size: int | None = None) -> dict:
+    """NSD-Synthetic: ``nsd_synthetic_data.pkl`` (``n_stimuli`` shared
+    stimuli ``synth{i:03d}`` × subjects × regions) and
+    ``stimuli/<name>.png`` under ``nsd_synthetic/`` (the meta's "root",
+    for ``NSD_SYNTHETIC_DATA_DIR``)."""
+    from PIL import Image
+
+    fixture_dir = Path(fixture_dir) if fixture_dir is not None else FIXTURE_DIR
+    n_stimuli = NSDSYN_N_STIMULI if n_stimuli is None else n_stimuli
+    n_subjects = N_SUBJECTS if n_subjects is None else n_subjects
+    regions = REGIONS if n_regions is None else ALL_REGIONS[:n_regions]
+    n_voxels = N_VOXELS if n_voxels is None else n_voxels
+    img_size = IMG_SIZE if img_size is None else img_size
+    root = fixture_dir / "nsd_synthetic"
+    scale = {"n_stimuli": n_stimuli, "n_subjects": n_subjects, "regions": regions,
+             "n_voxels": n_voxels, "img_size": img_size}
+    meta = _meta_matches(root / "meta.json", **scale)
+    if meta:
+        return meta
+    t0 = time.time()
+    stim_dir = root / "stimuli"
+    stim_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.Generator(np.random.PCG64(5))
+    names = [f"synth{i:03d}" for i in range(n_stimuli)]
+    for n in names:
+        Image.fromarray(rng.integers(0, 256, (img_size, img_size, 3), dtype=np.uint8)).save(
+            stim_dir / f"{n}.png")
+    data = {region: {subj: {"stimulus": list(names),
+                            "values": rng.standard_normal((n_stimuli, n_voxels)).astype(np.float32)}
+                     for subj in range(n_subjects)}
+            for region in regions}
+    with open(root / "nsd_synthetic_data.pkl", "wb") as f:
+        pickle.dump({"shared_stimulus_names": names, "data": data}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    meta = {"root": str(root), **scale, "build_s": round(time.time() - t0, 1)}
+    (root / "meta.json").write_text(json.dumps(meta))
     return meta
 
 

@@ -1,2 +1,3 @@
-"""Stimulus transforms, the prefetching loader, NSD data loading, the
-object-classification datasets and batch augmentation."""
+"""Stimulus transforms, the prefetching loader, neural data loading
+(NSD, NSD-Synthetic, THINGS, TVSD, Cusack), the object-classification
+datasets and batch augmentation."""

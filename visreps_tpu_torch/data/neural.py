@@ -1,11 +1,14 @@
-"""NSD response and stimulus loading (copy of
-``visreps_tpu/data/neural.py:24-228``: the response adapter, the lazy
-stimulus brick and ``load_all_nsd_data``).
+"""Neural dataset loaders: NSD, NSD-Synthetic, THINGS, TVSD, Cusack2025
+(copy of ``visreps_tpu/data/neural.py``: the response adapter, the lazy
+stimulus brick and every loader).
 
-The ``NSD_STIMULI_HDF5`` environment variable, read when
-``load_all_nsd_data`` is called, names the stimulus brick: NSD's HDF5
-file, or a ``.npy`` array file of the same (N, H, W, 3) uint8 content.
-Unset, the module's ``NSD_STIMULI_HDF5`` default path is used.
+The ``NSD_STIMULI_HDF5`` environment variable, read when an NSD loader
+is called, names the stimulus brick: NSD's HDF5 file, or a ``.npy``
+array file of the same (N, H, W, 3) uint8 content. Unset, the module's
+``NSD_STIMULI_HDF5`` default path is used. NSD-Synthetic reads
+``$NSD_SYNTHETIC_DATA_DIR``; THINGS, TVSD and Cusack read pickles under
+``datasets/neural/`` relative to the working directory, and TVSD's
+images lie under ``$BONNER_DATASETS_HOME/hebart2019.things``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Any, Dict
 import numpy as np
 
 from visreps_tpu_torch.core.env import get_env_var, load_pickle
+from visreps_tpu_torch.data.loader import make_stimuli_loader
+from visreps_tpu_torch.data.transforms import get_transform
 
 logger = logging.getLogger(__name__)
 
@@ -30,6 +35,8 @@ NSD_REGION_MAP = {
     "PPA": "PPA",
 }
 NSD_SUBJECTS = list(range(8))
+TVSD_REGIONS = ["V1", "V4", "IT"]
+TVSD_SUBJECTS = [0, 1]
 
 NSD_STIMULI_HDF5 = (
     "/data/shared/datasets/allen2021.natural_scenes/nsddata_stimuli/stimuli/nsd/nsd_stimuli.hdf5")
@@ -168,3 +175,174 @@ def load_all_nsd_data(cfg, subjects=None, regions=None) -> Dict:
         "stimuli": stimuli,
         "shared_test_ids": shared_test_ids,
     }
+
+
+def load_nsd_data(cfg) -> tuple[dict, "LazyStimulusBrick"]:
+    """One (region, subject): ({"train"/"test": {sid: response}}, stimuli)."""
+    region_key = NSD_REGION_MAP.get(cfg["region"], cfg["region"])
+    nsd = load_pickle(os.path.join(get_env_var("NSD_DATA_DIR"), "nsd_data.pkl"))
+    shared = set(nsd["shared_ids"])
+    arr = ResponseArray(nsd["data"][region_key][cfg["subject_idx"]])
+    stim_ids = [int(i) for i in arr.ids]
+    targets = {
+        "train": {str(i): arr.sel(i) for i in stim_ids if i not in shared},
+        "test": {str(i): arr.sel(i) for i in stim_ids if i in shared},
+    }
+    brick = os.environ.get("NSD_STIMULI_HDF5", NSD_STIMULI_HDF5)
+    return targets, LazyStimulusBrick(brick, "imgBrick", stim_ids)
+
+
+# ── NSD Synthetic ────────────────────────────────────────────────
+def load_nsd_synthetic_test_data(cfg, subjects=None, regions=None) -> Dict:
+    """The shared synthetic test stimuli (220 in NSD-Synthetic) with every
+    requested (region, subject)'s responses to them, and their PNG paths
+    under ``$NSD_SYNTHETIC_DATA_DIR/stimuli``."""
+    subjects = subjects if subjects is not None else NSD_SUBJECTS
+    region_pairs = [(pkl, name) for name, pkl in NSD_REGION_MAP.items()
+                    if regions is None or name in regions]
+    root = get_env_var("NSD_SYNTHETIC_DATA_DIR")
+    synth = load_pickle(os.path.join(root, "nsd_synthetic_data.pkl"))
+    names = synth["shared_stimulus_names"]
+
+    neural: Dict = {}
+    for region_key, region_full in region_pairs:
+        neural[region_full] = {}
+        for subj in subjects:
+            arr = ResponseArray(synth["data"][region_key][subj])
+            neural[region_full][subj] = {s: arr.sel(s) for s in names}
+
+    return {
+        "regions": [f for _, f in region_pairs],
+        "subjects": list(subjects),
+        "neural": neural,
+        "stimuli": {n: os.path.join(root, "stimuli", f"{n}.png") for n in names},
+        "test_ids": list(names),
+    }
+
+
+def load_nsd_synthetic_data(cfg) -> tuple[dict, dict]:
+    """One (region, subject)'s synthetic responses and stimulus arrays."""
+    region, subj = cfg["region"], cfg["subject_idx"]
+    root = get_env_var("NSD_SYNTHETIC_DATA_DIR")
+    fmri = load_pickle(os.path.join(root, "fmri_responses.pkl"))[region][subj]
+    images = {str(k): v for k, v in
+              load_pickle(os.path.join(root, f"stimuli_subject_{subj}.pkl")).items()}
+    ids = {str(k) for k in fmri} & images.keys()
+    return {i: fmri[i] for i in ids}, {i: images[i] for i in ids}
+
+
+# ── THINGS behavioural ───────────────────────────────────────────
+def load_things_data() -> tuple[dict, dict]:
+    """({"embeddings": {concept: (66,)}, "image_ids": {concept: [ids]}},
+    {image id: path}) from ``datasets/neural/things/things_split.pkl``,
+    relative to the working directory."""
+    data = load_pickle(os.path.join("datasets", "neural", "things", "things_split.pkl"))
+    return {"embeddings": data["embeddings"], "image_ids": data["image_ids"]}, data["image_paths"]
+
+
+# ── TVSD macaque ─────────────────────────────────────────────────
+def _tvsd_things_image_path(sid: str, things_root: str) -> str | None:
+    """THINGS' layout: images/object_images/<concept>/<sid>.jpg, the
+    concept being the id without its last ``_`` field."""
+    concept = "_".join(sid.split("_")[:-1])
+    path = os.path.join(things_root, "images", "object_images", concept, f"{sid}.jpg")
+    if os.path.exists(path):
+        return path
+    logger.warning("TVSD image not found: %s", path)
+    return None
+
+
+def _things_root() -> str:
+    return os.path.join(
+        os.environ.get("BONNER_DATASETS_HOME", os.path.expanduser("~/.cache/bonner-datasets")),
+        "hebart2019.things")
+
+
+def load_tvsd_data(cfg) -> tuple[dict, dict]:
+    """One (region, monkey): ({split: {sid: response}}, {sid: image path})."""
+    region, subj = cfg["region"], cfg["subject_idx"]
+    splits = load_pickle(os.path.join("datasets", "neural", "tvsd", "fmri_responses.pkl"))[region][subj]
+    root = _things_root()
+    targets, img_paths = {}, {}
+    for split_name, obj in splits.items():
+        arr = ResponseArray(obj)
+        ids = [str(s) for s in arr.ids]
+        targets[split_name] = {sid: arr.sel(sid) for sid in ids}
+        for sid in ids:
+            if sid not in img_paths and (p := _tvsd_things_image_path(sid, root)):
+                img_paths[sid] = p
+    return targets, img_paths
+
+
+def load_all_tvsd_data(cfg, subjects=None, regions=None) -> Dict:
+    """Every requested (region, monkey)'s train/test responses from
+    ``datasets/neural/tvsd/fmri_responses.pkl`` (relative to the working
+    directory), the image paths, and the test ids shared by the monkeys
+    (string ids, sorted as strings)."""
+    subjects = subjects if subjects is not None else TVSD_SUBJECTS
+    regions_to_load = regions if regions is not None else TVSD_REGIONS
+    data = load_pickle(os.path.join("datasets", "neural", "tvsd", "fmri_responses.pkl"))
+    root = _things_root()
+
+    neural: Dict = {}
+    all_paths: Dict = {}
+    per_subject_test: list[set] = []
+    for region in regions_to_load:
+        neural[region] = {}
+        for subj in subjects:
+            targets = {}
+            for split_name, obj in data[region][subj].items():
+                arr = ResponseArray(obj)
+                ids = [str(s) for s in arr.ids]
+                targets[split_name] = {sid: arr.sel(sid) for sid in ids}
+                for sid in ids:
+                    if sid not in all_paths and (p := _tvsd_things_image_path(sid, root)):
+                        all_paths[sid] = p
+            neural[region][subj] = targets
+            if region == regions_to_load[0]:
+                per_subject_test.append(set(targets["test"]))
+
+    return {
+        "regions": list(regions_to_load),
+        "subjects": list(subjects),
+        "neural": neural,
+        "stimuli": all_paths,
+        "shared_test_ids": sorted(set.intersection(*per_subject_test)),
+    }
+
+
+# ── Cusack 2025 infant fMRI ──────────────────────────────────────
+def load_cusack_data(cfg) -> tuple[dict, dict]:
+    """One region and age group's responses and display-image paths from
+    ``datasets/neural/cusack2025/`` (relative to the working directory)."""
+    region = cfg["region"]
+    age_group = cfg.get("age_group", "2month")
+    fmri = load_pickle(os.path.join("datasets", "neural", "cusack2025", "fmri_responses.pkl"))
+    targets = fmri[region][age_group]
+    stimuli_dir = os.path.join("datasets", "neural", "cusack2025", "display_images")
+    stimuli = {}
+    for sid in targets:
+        p = os.path.join(stimuli_dir, f"{sid}.png")
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"Stimulus image not found: {p}")
+        stimuli[sid] = p
+    return targets, stimuli
+
+
+# ── unified entry ────────────────────────────────────────────────
+def get_neural_loader(cfg):
+    """(targets, loader) for one neural dataset's stimuli; the loader
+    ships uint8 batches when ``uint8_transfer`` is set (the extractor
+    normalises them on the device)."""
+    loaders = {"nsd": load_nsd_data, "things-behavior": lambda cfg: load_things_data(),
+               "nsd_synthetic": load_nsd_synthetic_data, "cusack": load_cusack_data,
+               "tvsd": load_tvsd_data}
+    dataset = cfg.get("neural_dataset")
+    if dataset not in loaders:
+        raise ValueError(
+            "neural_dataset must be 'nsd', 'things-behavior', 'nsd_synthetic', 'cusack', or 'tvsd'")
+    targets, stimuli = loaders[dataset](cfg)
+    loader = make_stimuli_loader(
+        stimuli, get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False)),
+        cfg["batchsize"], cfg.get("num_workers", 16))
+    return targets, loader

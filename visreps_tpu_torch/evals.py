@@ -1,10 +1,12 @@
-"""NSD evaluation (port of ``visreps_tpu/evals.py:54-66, 96-123,
-143-302, 397-873, 1079-1193`` for ``neural_dataset=nsd``) of an
-untrained torchvision-architecture model or of a checkpoint: the RSA
-eval (``analysis=rsa``) or the encoding score (``analysis=encoding_score``).
+"""The evals (port of ``visreps_tpu/evals.py``) of an untrained
+torchvision-architecture model or of a checkpoint, for the four datasets
+the paper scores against.
 
-Both extract every tap once into the SRP store. RSA then runs the
-reference's two-phase protocol:
+NSD and TVSD share one multi-subject path. Every tap is extracted once
+into the SRP store, then either the encoding score (``analysis=
+encoding_score``: ridge regressions on every train row, batched per
+subject across regions and layers, refits grouped across subjects;
+``analysis/encoding.py``, ``ops/ridge.py``) or the two-phase RSA:
 
   * phase 1 — per (region, subject), pick the layer whose SRP-activation
     RDM best matches the neural RDM on a seed-42 subsample of
@@ -15,49 +17,72 @@ reference's two-phase protocol:
     per pair, plus 1000 × 90 % subsample bootstrap CIs (grouped over
     pairs), saved to results.db.
 
+THINGS (``things-behavior``) averages the store per concept, splits the
+concepts 20/80 (RandomState(42)) into selection and evaluation, selects
+a layer on the first, and scores the selected layer's concept means at
+full resolution against the 66-d behavioural embeddings
+(``analysis/rsa.compute_rsa``). NSD-Synthetic (``nsd_synthetic``) takes
+each pair's layer from the NSD RSA row in results.db and scores its
+exact taps on the 220 synthetic stimuli.
+
 Every RDM goes through ``ops.rdm.compute_rdm`` — the Hopper kernel on
-the card. Encoding fits ridge regressions on every train row of the
-store (``analysis/encoding.py``, ``ops/ridge.py``), batched per subject
-across regions and layers, with the refits grouped across subjects.
-Configurations outside this slice raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+the card. Configurations outside the port raise NotImplementedError
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import json
+import sqlite3
 import time
+from contextlib import closing
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from visreps_tpu_torch.analysis import encoding
+from visreps_tpu_torch.analysis import encoding, rsa
 from visreps_tpu_torch.analysis.alignment import (
+    AlignmentData,
     align_stimulus_level,
     compute_traintest_alignment,
+    prepare_concept_alignment,
     prepare_traintest_alignment,
+    take_rows,
 )
-from visreps_tpu_torch.analysis.rsa import select_best_layer, select_scores_multipair
+from visreps_tpu_torch.analysis.rsa import (
+    concept_average_exact,
+    select_best_layer,
+    select_scores_multipair,
+)
+from visreps_tpu_torch.core import db
 from visreps_tpu_torch.core.config import Config, get_seed_letter
-from visreps_tpu_torch.core.db import save_results
+from visreps_tpu_torch.core.db import compute_run_id, save_results
 from visreps_tpu_torch.core.logging import Timer, rprint
 from visreps_tpu_torch.data.loader import make_stimuli_loader
-from visreps_tpu_torch.data.neural import load_all_nsd_data
+from visreps_tpu_torch.data.neural import (
+    get_neural_loader,
+    load_all_nsd_data,
+    load_all_tvsd_data,
+    load_nsd_synthetic_test_data,
+)
 from visreps_tpu_torch.data.transforms import get_transform
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.extractor import configure_feature_extractor
 from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES, checkpoint_path, load_model
 from visreps_tpu_torch.ops.bootstrap import bootstrap_indices, grouped_scoring, percentile_ci
-from visreps_tpu_torch.ops.rdm import compute_rdm
+from visreps_tpu_torch.ops.rdm import compute_rdm, compute_rdm_correlation_batched
 
 #: Wall-clock seconds of the last eval's phases: model_load_s,
 #: data_load_s, extraction_s (of which extraction_loader_s waited on the
 #: host loader), then for RSA phase1_selection_s, phase2_extract_s,
 #: scoring_bootstrap_s, and for encoding encoding_s (the whole analysis)
 #: with the encoding module's phases as encoding_{selection,refit,
-#: assemble_bootstrap}_s on the subject-batched path. Rewritten by every
-#: eval() call.
+#: assemble_bootstrap}_s on the subject-batched path. THINGS has
+#: concept_avg_s and scoring_s, with compute_rsa's steps as scoring_*
+#: (rsa.LAST_RSA_TIMES); NSD-Synthetic has data_load_s, model_load_s,
+#: phase2_extract_s and scoring_bootstrap_s. Phases end with a device
+#: synchronise. Rewritten by every eval() call.
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
@@ -75,6 +100,28 @@ def _load_cfg(cfg: Config) -> Config:
 
 def _listify(val) -> list:
     return list(val) if isinstance(val, list) else [val]
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card, so that a phase's time includes its launches."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _build_header(cfg) -> str:
+    analysis = cfg.get("analysis", "rsa").upper()
+    seed = cfg.get("seed", "?")
+    seed_letter = get_seed_letter(seed) if isinstance(seed, int) else "?"
+    parts = [f"{analysis} eval",
+             f"cfg{cfg.get('cfg_id', '?')}{seed_letter} epoch {cfg.get('epoch', '?')}"]
+    dataset = cfg.get("neural_dataset", "?").upper()
+    region = cfg.get("region", "")
+    parts.append(f"{dataset} {region}" if region and str(region).upper() != "N/A" else dataset)
+    subj = cfg.get("subject_idx", "")
+    if subj != "" and str(subj).upper() != "N/A":
+        parts.append(f"subj {subj}")
+    parts.append(f"seed {seed}")
+    return " | ".join(parts)
 
 
 def _neural_tensor(responses: dict, ids) -> np.ndarray:
@@ -111,13 +158,14 @@ def _check_slice(cfg) -> None:
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item!r})")
 
     dataset = cfg.get("neural_dataset", "nsd").lower()
-    if dataset in ("tvsd", "nsd_synthetic", "things-behavior"):
-        missing(f"neural_dataset={dataset}", "THINGS/TVSD/NSD-synthetic")
-    if dataset != "nsd":
+    if dataset not in ("nsd", "tvsd", "things-behavior", "nsd_synthetic"):
         raise ValueError(f"Unsupported neural_dataset={dataset!r}")
     analysis = cfg.get("analysis", "rsa").lower()
     if analysis not in ("rsa", "encoding_score"):
         raise ValueError(f"Unknown analysis method: {analysis}")
+    if analysis == "encoding_score" and dataset in ("things-behavior", "nsd_synthetic"):
+        raise ValueError(f"analysis=encoding_score is not supported for {dataset}. "
+                         "Use analysis=rsa instead.")
     if cfg.get("reconstruct_from_pcs"):
         missing("reconstruct_from_pcs", "Analysis remainder")
     if analysis == "rsa":
@@ -131,9 +179,20 @@ def _check_slice(cfg) -> None:
         missing(f"model_name={cfg.get('model_name')}", "Remaining models")
 
 
+def _store_kind(cfg, device: torch.device) -> str:
+    """Where the SRP store lives: ``acts_store``, by default the card
+    ("device", bf16) when there is one, else the host (f32)."""
+    store = cfg.get("acts_store", "auto")
+    if store == "auto":
+        store = "device" if device.type == "cuda" else "host"
+    return store
+
+
 def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
-    """Run the NSD eval (``cfg.analysis``: rsa or encoding_score); returns
-    one result dict per (region, subject).
+    """Run the eval ``cfg`` asks for (``neural_dataset`` nsd, tvsd,
+    things-behavior or nsd_synthetic; ``analysis`` rsa, or
+    encoding_score on nsd and tvsd); returns one result dict per
+    (region, subject), one for THINGS.
 
     ``device`` defaults to CUDA (raising when there is none); pass
     ``"cpu"`` to run on the CPU with the kernel's plain version.
@@ -149,20 +208,28 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
         cfg.epoch = -1
         cfg.cfg_id = "pretrained" if cfg.get("pretrained_dataset") == "imagenet1k" else "untrained"
         cfg.return_nodes = TORCHVISION_RETURN_NODES[cfg.get("model_name", "AlexNet")]
+    dataset = cfg.get("neural_dataset", "nsd").lower()
+    if dataset == "things-behavior":
+        return _eval_things(cfg, verbose, device)
     subjects = _listify(cfg.subject_idx)
     regions = _listify(cfg.region)
+    if dataset == "nsd_synthetic":
+        return _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device)
+
+    # ── NSD / TVSD: the unified multi-subject path ──
     seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"
     analysis = cfg.get("analysis", "rsa").lower()
-    rprint(f"\n  {analysis.upper()} eval | cfg{cfg.cfg_id}{seed_letter} epoch {cfg.epoch} | NSD | "
-           f"{len(subjects)} subjects x {len(regions)} regions | seed {cfg.seed} | {device}\n",
-           style="info")
+    rprint(f"\n  {analysis.upper()} eval | cfg{cfg.cfg_id}{seed_letter} epoch {cfg.epoch} | "
+           f"{dataset.upper()} | {len(subjects)} subjects x {len(regions)} regions | "
+           f"seed {cfg.seed} | {device}\n", style="info")
 
     timer = Timer()
     model = load_model(cfg, device=device)
     extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
     LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
 
-    all_data = load_all_nsd_data(cfg, subjects=subjects, regions=regions)
+    load_all = load_all_nsd_data if dataset == "nsd" else load_all_tvsd_data
+    all_data = load_all(cfg, subjects=subjects, regions=regions)
     LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
     stimuli = all_data["stimuli"]
     rprint(f"  {len(subjects)} subjects x {len(regions)} regions, {len(stimuli)} stimuli, "
@@ -170,10 +237,7 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
 
     transform = get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False))
     dl = make_stimuli_loader(stimuli, transform, cfg.batchsize, cfg.get("num_workers", 16))
-    store = cfg.get("acts_store", "auto")
-    if store == "auto":
-        store = "device" if device.type == "cuda" else "host"
-    acts, ids = extractor.get_activations(dl, store=store)
+    acts, ids = extractor.get_activations(dl, store=_store_kind(cfg, device))
     extractor.free_projection_cache()
     LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
     LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
@@ -181,6 +245,66 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     if analysis == "encoding_score":
         return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
     return _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose)
+
+
+def _eval_things(cfg, verbose, device) -> List[Dict]:
+    """Concept-level RSA against the THINGS behavioural embeddings: one
+    result (region and subject "N/A")."""
+    timer = Timer()
+    rprint(f"\n  {_build_header(cfg)} | {device}\n", style="info")
+    model = load_model(cfg, device=device)
+    extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+    LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
+
+    neural_data, dl = get_neural_loader(cfg)
+    rprint("  THINGS data loaded", style="success")
+    LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
+
+    store = _store_kind(cfg, device)
+    acts, ids = extractor.get_activations(dl, store=store)
+    extractor.free_projection_cache()
+    LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
+    LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
+    all_concepts = prepare_concept_alignment(cfg, acts, neural_data, ids)
+    del acts, neural_data
+    _sync(device)
+    LAST_PHASE_TIMES["concept_avg_s"] = timer.mark("concept_avg")
+
+    n_concepts = all_concepts.neural.shape[0]
+    perm = np.random.RandomState(42).permutation(n_concepts)
+    n_sel = int(n_concepts * 0.2)
+    sel_idx, eval_idx = perm[:n_sel], perm[n_sel:]
+
+    def split(idx) -> AlignmentData:
+        return AlignmentData(
+            activations={l: take_rows(a, idx) for l, a in all_concepts.activations.items()},
+            neural=all_concepts.neural[idx],
+            stimulus_ids=[all_concepts.stimulus_ids[i] for i in idx])
+
+    selection, evaluation = split(sel_idx), split(eval_idx)
+    evaluation.concept_image_ids = {c: all_concepts.concept_image_ids[c]
+                                    for c in evaluation.stimulus_ids}
+    del all_concepts
+    rprint(f"  {n_sel} selection concepts, {len(eval_idx)} evaluation concepts", style="success")
+
+    def re_extract(layer, ids=None):
+        """The selected layer's full-resolution evaluation-concept means:
+        averaged on the card during the forward for a device store, else
+        averaged on the host."""
+        if store == "device":
+            return extractor.extract_single_layer_mean(
+                dl, layer, evaluation.concept_image_ids, evaluation.stimulus_ids)
+        raw, raw_ids = extractor.extract_single_layer(dl, layer)
+        return concept_average_exact(raw, raw_ids, evaluation), evaluation.stimulus_ids
+
+    scores = compute_traintest_alignment(cfg, selection, evaluation, verbose=verbose,
+                                         re_extract_fn=re_extract, device=device)
+    _sync(device)
+    LAST_PHASE_TIMES["scoring_s"] = timer.mark("scoring")
+    LAST_PHASE_TIMES.update({f"scoring_{k}": v for k, v in rsa.LAST_RSA_TIMES.items()})
+    if cfg.get("log_expdata"):
+        save_results(scores, cfg)
+    return scores
 
 
 def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -> List[Dict]:
@@ -247,8 +371,7 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
     model_rdms = {}
     for layer in unique_layers:
         model_rdms[layer] = compute_rdm(exact.pop(layer))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # bill the queued RDM launches to phase 2
+    _sync(device)  # bill the queued RDM launches to phase 2
     LAST_PHASE_TIMES["phase2_extract_s"] = time.perf_counter() - t0
 
     # ── Scoring: point scores + grouped bootstrap for every pair ──
@@ -262,15 +385,27 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
     boot_by_pair, point_of_pair = grouped_scoring(
         model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, boot_idx)
     del neural_mats
+    all_results = _report(cfg, pair_list, best, point_of_pair,
+                          boot_by_pair if bootstrap else None, sel_scores)
+    LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
+    return all_results
 
+
+def _report(cfg, pair_list, layer_of, point_of, boot_of, sel_scores) -> List[Dict]:
+    """One result per (region, subject) pair, in ``pair_list`` order:
+    printed and, with ``log_expdata``, saved to results.db. ``boot_of``
+    {pair: bootstrap scores} is None without a bootstrap; ``sel_scores``
+    {region: {subject: selection scores}} is None where the layers were
+    not selected here (their entry is then [])."""
+    method = cfg.get("compare_method", "spearman").lower()
     all_results = []
     last_region = None
     for region, subj in pair_list:
         if region != last_region:
             rprint(f"\n  -- Region: {region} --", style="info")
             last_region = region
-        layer = best[region][subj]
-        point = point_of_pair[(region, subj)]
+        layer = layer_of[region][subj]
+        point = point_of[(region, subj)]
         result = {
             "layer": layer,
             "compare_method": method,
@@ -278,11 +413,11 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
             "ci_low": None,
             "ci_high": None,
             "analysis": "rsa",
-            "layer_selection_scores": sel_scores[region][subj],
+            "layer_selection_scores": [] if sel_scores is None else sel_scores[region][subj],
         }
         msg = f"    {region} subj {subj} | {method.capitalize():<10}| {layer} = {point:.4f}"
-        if bootstrap:
-            boot = boot_by_pair[(region, subj)]
+        if boot_of is not None:
+            boot = boot_of[(region, subj)]
             result["ci_low"], result["ci_high"] = percentile_ci(boot)
             result["bootstrap_scores"] = boot.tolist()
             msg += f"  [95% CI: {result['ci_low']:.4f}, {result['ci_high']:.4f}]"
@@ -290,7 +425,87 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
         if cfg.get("log_expdata"):
             save_results([result], cfg.merge({"subject_idx": subj, "region": region}))
         all_results.append(result)
-    LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
+    return all_results
+
+
+def _lookup_nsd_best_layers(cfg, subjects, regions) -> Dict:
+    """{region: {subject: layer}} from results.db: each pair's NSD RSA
+    row, found by the run_id the NSD eval of this configuration wrote
+    (``compute_run_id`` with neural_dataset nsd and analysis rsa), so a
+    row written by either package is found. Raises ValueError naming the
+    pair when there is none."""
+    method = cfg.get("compare_method", "spearman").lower()
+    layers: Dict = {}
+    with closing(sqlite3.connect(str(db.RESULTS_DB_PATH))) as conn:
+        for region in regions:
+            layers[region] = {}
+            for subj in subjects:
+                run_id = compute_run_id(cfg.merge({
+                    "neural_dataset": "nsd", "analysis": "rsa", "subject_idx": subj,
+                    "region": region, "compare_method": method}))
+                try:
+                    row = conn.execute("SELECT layer FROM results WHERE run_id=? AND "
+                                       "compare_method=?", (run_id, method)).fetchone()
+                except sqlite3.OperationalError:  # a new, empty database
+                    row = None
+                if row is None:
+                    raise ValueError(
+                        f"No NSD RSA result found (run_id={run_id}) for seed={cfg.seed}, "
+                        f"region={region}, subj={subj}, cfg_id={cfg.get('cfg_id')}. "
+                        "Run NSD eval first.")
+                layers[region][subj] = row[0]
+    return layers
+
+
+def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dict]:
+    """RSA on the NSD-Synthetic stimuli with each pair's layer inherited
+    from its NSD eval: exact taps of the unique layers (one pass,
+    normalised on the host), one RDM each, then grouped scoring (neural
+    RDMs, average-tie point scores, bootstrap) with a bootstrap, or the
+    batched average-tie point scores without one."""
+    method = cfg.get("compare_method", "spearman").lower()
+    bootstrap = cfg.get("bootstrap", False)
+    seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"
+    rprint(f"\n  RSA eval (NSD Synthetic) | cfg{cfg.get('cfg_id', '?')}{seed_letter} "
+           f"epoch {cfg.get('epoch', '?')} | {len(subjects)} subjects x {len(regions)} regions | "
+           f"seed {cfg.seed} | {device}\n", style="info")
+    timer = Timer()
+    best = _lookup_nsd_best_layers(cfg, subjects, regions)
+    test_data = load_nsd_synthetic_test_data(cfg, subjects=subjects, regions=regions)
+    test_ids = test_data["test_ids"]
+    rprint(f"  Loaded {len(test_ids)} synthetic test stimuli", style="success")
+    LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
+
+    model = load_model(cfg, device=device)
+    extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+    LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
+
+    unique_layers = sorted({l for rl in best.values() for l in rl.values()})
+    rprint(f"  Extracting {len(unique_layers)} unique layers (one pass)...", style="info")
+    dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"), cfg.batchsize,
+                                  cfg.get("num_workers", 16))
+    exact, _ = extractor.extract_layers_exact(dl_test, unique_layers, test_ids)
+    model_rdms = {layer: compute_rdm(exact.pop(layer)) for layer in unique_layers}
+    _sync(device)
+    LAST_PHASE_TIMES["phase2_extract_s"] = timer.mark("phase2_extract")
+
+    pair_list = [(r, s) for r in regions for s in subjects]
+    neural_mats = {(r, s): _neural_tensor(test_data["neural"][r][s], test_ids)
+                   for r, s in pair_list}
+    boot_by_pair = None
+    if bootstrap:
+        boot_by_pair, point_of_pair = grouped_scoring(
+            model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
+            bootstrap_indices(len(test_ids), cfg.get("n_bootstrap", 1000), seed=42))
+    else:
+        neural_rdms = torch.stack([compute_rdm(torch.as_tensor(neural_mats[k], device=device))
+                                   for k in pair_list])
+        model_stack = torch.stack([model_rdms[best[r][s]] for r, s in pair_list])
+        points = compute_rdm_correlation_batched(model_stack, neural_rdms, method).tolist()
+        point_of_pair = dict(zip(pair_list, points))
+    del neural_mats
+    all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, None)
+    LAST_PHASE_TIMES["scoring_bootstrap_s"] = timer.mark("scoring")
     return all_results
 
 

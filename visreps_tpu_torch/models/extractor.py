@@ -186,6 +186,45 @@ class FeatureExtractor:
                f"({len(all_ids)} stimuli, exact, no SRP)", style="success")
         return acts, all_ids
 
+    def extract_single_layer(self, loader: Iterable, layer_name: str, stimulus_ids=None):
+        """Full-resolution float32 activations of ONE tap over a loader:
+        ``extract_layers_exact`` for one layer, fetched to the host.
+        Returns ((N, D) float32 numpy array, ids)."""
+        acts, ids = self.extract_layers_exact(loader, [layer_name], stimulus_ids)
+        return acts[layer_name].cpu().numpy(), ids
+
+    @torch.inference_mode()
+    def extract_single_layer_mean(self, loader: Iterable, layer_name: str, groups: dict,
+                                  group_order: Sequence[str]):
+        """Per-group means of one tap's full-resolution activations,
+        accumulated on the device during the forward.
+
+        Each batch's tap rows are added (``index_add_``) into a (G+1, D)
+        float32 accumulator on the device; row G collects the stimuli of
+        no group and is dropped. Counts are kept on the host; each mean is
+        the sum over max(count, 1). groups: {group: [stimulus ids]};
+        group_order: the output rows. Returns ((G, D) float32 tensor on
+        the device, list(group_order))."""
+        point = self._point_of(layer_name)
+        seg_of = {str(sid): gi for gi, g in enumerate(group_order) for sid in groups[g]}
+        n_groups = len(group_order)
+        acc = torch.zeros((n_groups + 1, self.tap_dims[self.alias[point]]), dtype=torch.float32,
+                          device=self.device)
+        counts = np.zeros(n_groups, np.int64)
+        for x, keys in loader:
+            seg = np.asarray([seg_of.get(str(k), n_groups) for k in keys], np.int64)
+            np.add.at(counts, seg[seg < n_groups], 1)
+            rows = self._flat_taps(self._to_device(x), (point,))[point]
+            acc.index_add_(0, torch.as_tensor(seg, device=self.device), rows)
+        if (counts == 0).any():
+            rprint(f"Warning: {int((counts == 0).sum())} of {n_groups} groups matched no "
+                   "stimuli in the loader output (zero rows)", style="warning")
+        denom = torch.as_tensor(np.maximum(counts, 1), dtype=torch.float32, device=self.device)
+        means = acc[:n_groups] / denom[:, None]
+        rprint(f"  Re-extracted {layer_name}: {n_groups} group means of dim {acc.shape[1]} "
+               "(exact, no SRP, device-averaged)", style="success")
+        return means, list(group_order)
+
     def free_projection_cache(self) -> None:
         """Drop the SRP matrices (~3.7 GB bf16 at AlexNet scale); they
         regenerate from the seed on the next use."""

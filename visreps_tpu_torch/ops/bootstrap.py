@@ -1,5 +1,5 @@
 """Grouped Spearman scoring with bootstrap CIs (port of
-``visreps_tpu/ops/bootstrap.py:35-51, 185-303, 396-451, 654-655``).
+``visreps_tpu/ops/bootstrap.py:35-51, 185-303, 396-497, 654-655``).
 
 Every (region, subject) pair is scored against the SAME bootstrap index
 sets (numpy RandomState(42), bit-identical to the reference's serial
@@ -28,11 +28,12 @@ from visreps_tpu_torch.ops.stats import tie_groups
 
 
 def bootstrap_indices(n_test: int, n_bootstrap: int = 1000, subsample_frac: float = 0.9,
-                      seed: int = 42) -> np.ndarray:
+                      seed: int | np.random.RandomState = 42) -> np.ndarray:
     """(n_bootstrap, n_sub) without-replacement index sets, drawn with
     ``np.random.RandomState(seed).choice`` per iteration exactly as the
-    reference and the JAX package draw them."""
-    rng = np.random.RandomState(seed)
+    reference and the JAX package draw them; a RandomState given as
+    ``seed`` is drawn from where its stream stands."""
+    rng = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
     n_sub = int(n_test * subsample_frac)
     return np.stack(
         [rng.choice(n_test, size=n_sub, replace=False) for _ in range(n_bootstrap)]
@@ -131,3 +132,27 @@ def grouped_scoring(model_rdms: dict, pair_neural_mats: dict, pair_layer: dict,
     points = points.cpu().numpy().astype(np.float64)
     return ({k: scores[i] for i, k in enumerate(pair_keys)},
             {k: float(points[i]) for i, k in enumerate(pair_keys)})
+
+
+def single_pair_scoring(model_acts, neural_acts, indices: np.ndarray, chunk: int = 128,
+                        device=None):
+    """Scoring of ONE (model, neural) pair from its activation matrices:
+    the two RDMs (the kernel on the card), then ``grouped_core`` with
+    one layer and one pair. ``model_acts`` (n, d) and ``neural_acts``
+    (n, v) are tensors or arrays; they are scored on ``device`` (default:
+    ``model_acts``' device, or the CPU for an array). Returns ((B,)
+    float64 average-tie Spearman bootstrap scores, float average-tie
+    Spearman point score)."""
+    if device is None:
+        device = model_acts.device if isinstance(model_acts, torch.Tensor) else "cpu"
+    model = torch.as_tensor(model_acts).to(device)
+    neural = torch.as_tensor(neural_acts).to(device, torch.float32)
+    n = model.shape[0]
+    iu, ju = triu_indices(n, model.device)
+    model_tris = compute_rdm(model.reshape(n, -1))[iu, ju][None]
+    neural_tris = compute_rdm(neural.reshape(n, -1))[iu, ju][None]
+    idx = torch.as_tensor(np.asarray(indices, np.int64), device=model.device)
+    if idx.dim() != 2:
+        raise ValueError(f"indices must be (B, m_sub), got shape {tuple(idx.shape)}")
+    scores, points = grouped_core(model_tris, neural_tris, [0], idx, n, chunk)
+    return scores[0].cpu().numpy().astype(np.float64), float(points[0])

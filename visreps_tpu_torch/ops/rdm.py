@@ -1,18 +1,26 @@
-"""Correlation RDMs (port of ``visreps_tpu/ops/rdm.py:31-87``).
+"""Correlation RDMs and their comparison (port of
+``visreps_tpu/ops/rdm.py``).
 
 ``compute_rdm`` keeps every detail of the JAX recipe: row centring, the
 1e-12 variance stabiliser, the zero-variance guard (std < 10·correction
 → 1), cov / (std_i·std_j + correction), clamp to [−1, 1], unit diagonal,
 1 − corr. The Gram product and that epilogue run in one call of
 ``ops/rdm_kernel.rdm_from_centered``: the hand-written Hopper kernel on
-CUDA tensors, its plain torch version on CPU tensors.
+CUDA tensors, its plain torch version on CPU tensors. ``compute_rdm_correlation(_batched)``
+correlate upper triangles: Spearman with average tie ranks (scipy's),
+its dense-rank Σd² form, or Pearson.
 """
 from __future__ import annotations
 
 import torch
 
 from visreps_tpu_torch.ops.rdm_kernel import rdm_from_centered
-from visreps_tpu_torch.ops.stats import rankdata_dense
+from visreps_tpu_torch.ops.stats import (
+    pearson_corr,
+    rankdata_dense,
+    spearman_corr,
+    spearman_corr_dense,
+)
 
 
 def compute_rdm(representations: torch.Tensor, correlation: str = "pearson",
@@ -52,3 +60,40 @@ def triangle_tie_count(rdm: torch.Tensor) -> int:
     triangle (0 ⇒ dense-rank Spearman equals average-tie Spearman)."""
     s = torch.sort(upper_triangle(rdm)).values
     return int((s[1:] == s[:-1]).sum())
+
+
+_CORR_FUNCS = {"pearson": pearson_corr, "spearman": spearman_corr,
+               "spearman_dense": spearman_corr_dense}
+
+
+def _corr_fn(correlation: str):
+    corr = correlation.lower()
+    if corr == "kendall":
+        raise NotImplementedError(
+            "Kendall RDM comparison is not ported yet (ROADMAP.md, 'Pearson/Kendall scoring')")
+    if corr not in _CORR_FUNCS:
+        raise ValueError("correlation must be 'Pearson', 'Spearman', or 'Kendall'")
+    return _CORR_FUNCS[corr]
+
+
+def compute_rdm_correlation(rdm1: torch.Tensor, rdm2: torch.Tensor,
+                            correlation: str = "spearman") -> float:
+    """Correlation of two (n, n) RDMs' upper triangles; NaN when it is
+    undefined (n ≤ 1 or a constant triangle)."""
+    if rdm1.shape != rdm2.shape or rdm1.dim() != 2:
+        raise ValueError("RDMs must share the same 2-D shape")
+    fn = _corr_fn(correlation)
+    if rdm1.shape[0] <= 1:
+        return float("nan")
+    return float(fn(upper_triangle(rdm1), upper_triangle(rdm2.to(rdm1.device))))
+
+
+def compute_rdm_correlation_batched(rdms1: torch.Tensor, rdms2: torch.Tensor,
+                                    correlation: str = "spearman") -> torch.Tensor:
+    """(P, n, n) × (P, n, n) → (P,) upper-triangle correlations, pair by
+    pair on the RDMs' device."""
+    if rdms1.shape != rdms2.shape or rdms1.dim() != 3:
+        raise ValueError("RDM stacks must share the same (P, n, n) shape")
+    fn = _corr_fn(correlation)
+    iu, ju = triu_indices(rdms1.shape[-1], rdms1.device)
+    return torch.stack([fn(a[iu, ju], b[iu, ju]) for a, b in zip(rdms1, rdms2.to(rdms1.device))])

@@ -2,10 +2,11 @@
 [--override k=v ...] [--device cpu]
 
 Reads the same JSON configs as ``python -m visreps_tpu.run`` (default
-``configs/{mode}/base.json``) and trains (``--mode train``) or runs the
-NSD eval (``--mode eval``: ``analysis=rsa`` or ``analysis=encoding_score``)
-on the card, or on the CPU with ``--device cpu``. Validation covers what
-this port runs.
+``configs/{mode}/base.json``) and trains (``--mode train``) or runs an
+eval (``--mode eval``: ``neural_dataset`` nsd, tvsd, things-behavior or
+nsd_synthetic; ``analysis=rsa``, or ``analysis=encoding_score`` on nsd
+and tvsd) on the card, or on the CPU with ``--device cpu``. Validation
+covers what this port runs.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from visreps_tpu_torch.core.logging import rprint
 
 _NSD_REGIONS = {"early visual stream", "ventral visual stream",
                 "V1", "V2", "V3", "hV4", "FFA", "PPA"}
+_TVSD_REGIONS = {"V1", "V4", "IT"}
+_NEURAL_DATASETS = {"nsd", "things-behavior", "tvsd", "nsd_synthetic"}
 _DATASETS = {"imagenet", "tiny-imagenet", "imagenet-mini-10", "imagenet-mini-50",
              "imagenet-mini-200"}
 _MODEL_CLASSES = {"custom_model", "standard_model"}
@@ -67,25 +70,49 @@ def _validate_train(cfg: Config) -> Config:
 
 
 def _validate_eval(cfg: Config) -> Config:
-    """Seed, subjects, regions, method, analysis, return nodes, model
-    source and the checkpoint's existence; subject_idx / region become
-    lists."""
+    """Seed, dataset, its subjects and regions, method, analysis, return
+    nodes, model source and the checkpoint's existence. subject_idx /
+    region become lists, or "N/A" for things-behavior; encoding_score
+    (nsd and tvsd only) sets compare_method to pearson."""
     if cfg.get("seed") not in (1, 2, 3):
         raise ValueError(f"Invalid seed: {cfg.get('seed')}. Must be one of [1, 2, 3]")
-    for key in ("subject_idx", "region"):
-        if not isinstance(cfg.get(key), list):
-            cfg[key] = [cfg.get(key)]
-    if cfg.get("neural_dataset", "").lower() == "nsd":
+    dataset = cfg.get("neural_dataset", "").lower()
+    if dataset not in _NEURAL_DATASETS:
+        raise ValueError(f"Invalid neural_dataset: {dataset}")
+    if dataset == "things-behavior":
+        for key in ("region", "subject_idx"):
+            val = cfg.get(key)
+            if val is not None and not (isinstance(val, str) and val.upper() == "N/A"):
+                rprint(f"{key}={val!r} ignored for things-behavior; set to 'N/A'", style="warning")
+                cfg[key] = "N/A"
+    else:
+        for key in ("subject_idx", "region"):
+            if not isinstance(cfg.get(key), list):
+                cfg[key] = [cfg.get(key)]
+    if dataset in ("nsd", "nsd_synthetic"):
         for s in cfg.subject_idx:
             if not isinstance(s, int) or not 0 <= s < 8:
                 raise ValueError(f"Invalid subject index for NSD: {s}. Must be an integer in range [0, 7]")
         for r in cfg.region:
             if r not in _NSD_REGIONS:
                 raise ValueError(f"Invalid region for NSD: {r}. Must be one of {_NSD_REGIONS}")
+    if dataset == "tvsd":
+        for s in cfg.subject_idx:
+            if not isinstance(s, int) or s not in (0, 1):
+                raise ValueError(f"Invalid subject_idx for TVSD: {s}. Must be 0 (monkey F) or 1 (monkey N)")
+        for r in cfg.region:
+            if r not in _TVSD_REGIONS:
+                raise ValueError(f"Invalid region for TVSD: {r}. Must be one of {_TVSD_REGIONS}")
     if cfg.get("compare_method", "spearman").lower() not in {"spearman", "kendall"}:
         raise ValueError(f"Invalid compare_method: {cfg.get('compare_method')}")
-    if cfg.get("analysis", "").lower() not in {"rsa", "encoding_score"}:
+    analysis = cfg.get("analysis", "").lower()
+    if analysis not in {"rsa", "encoding_score"}:
         raise ValueError(f"Invalid analysis: {cfg.get('analysis')}")
+    if analysis == "encoding_score":
+        if dataset in ("things-behavior", "nsd_synthetic"):
+            raise ValueError(f"analysis=encoding_score is not supported for {dataset}. "
+                             "Use analysis=rsa instead.")
+        cfg.compare_method = "pearson"  # the encoding metric; part of the run_id
     if not list(cfg.get("return_nodes") or []):
         raise ValueError("return_nodes list cannot be empty")
     if cfg.get("load_model_from") not in {"checkpoint", "torchvision"}:
