@@ -11,8 +11,14 @@ non-zero without the final line:
   2. kernel — the RDM kernel against its plain torch version on the card
      at the eval's shapes, one ragged shape (n and d not multiples of
      the tile), n = 100, below one 128-row tile (TVSD's test set), and
-     THINGS' widest evaluation RDM, (1,484, 193,600) (f32 tolerance 1e-5, bf16 3e-3 against the plain version on the
-     same bf16 rows); the output must be exactly symmetric, with an
+     THINGS' widest evaluation RDM, (1,484, 193,600), and the phase-2
+     widths of ResNet50, ViT-B/16 and VGG16 at n = 1,000, up to VGG16's
+     conv1 (d = 3,211,264: a 12.8 GB f32 input, n·d above 2³¹)
+     (f32 tolerance 1e-5 up to d = 290,400, then growing as √d with the
+     f32 rounding error of a d-term sum, 3.3e-5 at 3,211,264, where both
+     versions' errors against an f64 Gram are printed too; bf16 3e-3
+     against the plain version on the same bf16 rows); the output must
+     be exactly symmetric, with an
      exactly zero diagonal, and bit-identical over two calls. With the
      kernel's time per call (CUDA events; beside it the host's time to
      enqueue the call, and the device time of the kernel's own launches
@@ -23,13 +29,19 @@ non-zero without the final line:
      tensor cores (f32 FMA) beside it, and the launch plan (tiles, splits).
   3. srp — the SRP product on the card (bf16 GEMM, f32 out) against the
      same product in f32 on widened operands (relative tolerance 1e-5).
-  4. e2e — the NSD RSA eval through ``python -m visreps_tpu_torch.run``'s
+  4. models — ResNet18, ResNet50, VGG16, ViT-B/16 and ECTiedNet at full
+     width from seeded weights (init_model, seed 0, 1000 classes): the
+     parameter count equal to the JAX model's, and a forward of 2 images
+     on the card against the same forward on the CPU, every tap within
+     1e-4 of the tap's largest |value| (TF32 off); with the card's ms per
+     image of an all-taps forward at the eval's batch.
+  5. e2e — the NSD RSA eval through ``python -m visreps_tpu_torch.run``'s
      entry point on a synthetic fixture (3000 stimuli, 2 subjects × 2
      regions, 512 voxels) at full width: AlexNet, 14 taps, SRP k=4096,
      n_select 1000, 1000 bootstraps, Spearman, uint8 transfer, results.db.
      Checks results, db rows, finite scores, and that the kernel was
      launched exactly once per RDM the eval builds.
-  5. train — ``run.main(["--mode", "train", ...])`` with
+  6. train — ``run.main(["--mode", "train", ...])`` with
      configs/train/base.json and PCA labels (CustomCNN at 224 px,
      pca_n_classes 32, AdamW, batch 256) on a synthetic on-disk ImageNet
      of 1600 JPEGs (1280 train images: 5 steps per epoch), two epochs.
@@ -38,17 +50,17 @@ non-zero without the final line:
      checkpoint loads back bit-identically; prints the loss per step,
      ms per step (CUDA events, steps 2–10), images/s, the seconds the
      step loop waited on the loader and peak device memory.
-  6. train_step — the train step alone (CustomCNN, 1000 classes, batch
+  7. train_step — the train step alone (CustomCNN, 1000 classes, batch
      256 on the card, AdamW): ms per step over 8 steps after a warm-up,
      images/s, peak memory, and its bound (3 × the forward's operations
      over the f32 FMA peak). Holds one step at batch 8 without dropout on
      the card against the same step on the CPU (loss and gradient norm
      within rtol 1e-4, BN running statistics within 1e-4 of each
      tensor's largest value).
-  7. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
+  8. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
      wrote (``load_model_from=checkpoint``, cfg_id 32, epoch 2), with the
      same checks; its rows must carry cfg_id 32 and epoch 2.
-  8. things — the THINGS eval (the JAX bench's stage_things_e2e:
+  9. things — the THINGS eval (the JAX bench's stage_things_e2e:
      untrained AlexNet, 14 taps, SRP k=4096, Spearman, 1000 bootstraps,
      uint8 transfer, results.db) on a fixture of 1,854 concepts × 14
      images (25,956 ids over a pool of 4,096 distinct 256 px JPEGs) and
@@ -57,25 +69,43 @@ non-zero without the final line:
      1000 bootstrap scores, 370 selection / 1,484 evaluation concepts,
      the store, the concept means and the selected layer's re-extracted
      means on the card, and 14 + 1 + 2 RDM launches.
-  9. tvsd — the TVSD eval (stage_tvsd_e2e: n_select 1000, the same
+ 10. tvsd — the TVSD eval (stage_tvsd_e2e: n_select 1000, the same
      width) on 22,248 train + 100 test JPEG ids (the same pool) × 2
      monkeys × V1/V4/IT × 256 sites. Checks 6 results and rows and
      S·(14 + R) + U + P = 40 + U launches.
- 10. nsd_synthetic — the NSD-Synthetic eval (stage_nsd_synthetic_e2e)
+ 11. nsd_synthetic — the NSD-Synthetic eval (stage_nsd_synthetic_e2e)
      on 220 PNG stimuli × 8 subjects × 6 regions × 512 voxels, over the
      results.db the e2e phase wrote: its 4 pairs inherit e2e's selected
      layers (the chain users run, NSD first), the other 44 are seeded
      with conv5_post. Checks 48 results and rows, the 4 inherited layers,
      and U + 48 launches.
+ 12. ref_ckpt — a CustomCNN checkpoint in the reference's own format (a
+     torch zip file holding the whole pickled module, 64 classes, epoch
+     20) through ``train.checkpoint.load_checkpoint`` on the card and on
+     the CPU: its config, and logits within 1e-4 of the largest against
+     each other and against the pickled module's own forward; then the
+     e2e eval of it (``load_model_from=checkpoint``, cfg_id 64, epoch 20).
+ 13. e2e_resnet50, e2e_vit, e2e_vgg16 — the e2e eval of ResNet50,
+     ViT-B/16 and VGG16 with ``pretrained_dataset=imagenet1k``: a seeded
+     state dict in torchvision's layout, written under torchvision's file
+     name into a temporary TORCH_WEIGHTS_DIR, is imported (the loaded
+     model's first layer, a middle one and its head must equal the
+     file's: no random-init fallback). 18, 14 and 30 selection taps;
+     VGG16 at batch 128 (its 30 f32 taps at 256 would not fit beside its
+     50 GB of SRP matrices). Rows carry cfg_id 'pretrained' and epoch −1.
+     Each also prints the SRP matrices' size, the tap floats per image,
+     the peak memory of extraction and of phase 2 with the exact layers'
+     widths and bytes.
      Each eval phase prints its wall and phase times, extraction images/s
      with the loader's wait, peak device memory, fixture seconds and the
-     RDM shapes it asked for.
- 11. path — the RDM shapes every RSA eval called, with their launch
+     RDM shapes it asked for; the checks of e2e hold for each (results,
+     rows, finite scores, S·(T + R) + U + P launches for T taps).
+ 14. path — the RDM shapes every RSA eval called, with their launch
      counts and the kernel's time at each: its time on the main path, Σ
      launches × ms. A shape the kernel phase did not check gets the
      kernel phase's checks here before it is timed, beside the plain
      version's and torch.corrcoef's times.
- 12. encoding — the NSD encoding-score eval through ``run.main`` at full
+ 15. encoding — the NSD encoding-score eval through ``run.main`` at full
      width (untrained AlexNet, 14 taps, SRP k=4096, uint8 transfer,
      ``encoding_cv_precision=high``, 1000 bootstraps, results.db) on a
      synthetic fixture at NSD's own counts, built in its own directory:
@@ -89,7 +119,7 @@ non-zero without the final line:
      eigh (alone and in a batch of 14), 20 small inverses one by one
      and batched, peak memory, and the operation counts of the
      selection sweep and the refits with their bounds.
- 13. encoding_check — one subject's ``compute_encoding_scores_subject``
+ 16. encoding_check — one subject's ``compute_encoding_scores_subject``
      on planted data (y = tap3·W + noise; 3 taps, 2 regions × 1,000
      voxels, 1,000 test rows) on both solver routes: n_train 6,400 and
      d 512 (Woodbury), n_train 400 and d 512 (per-fold eigh, on the
@@ -99,7 +129,7 @@ non-zero without the final line:
      select the same layers and agree within 1e-4 (scores and CIs); on
      the card ``high`` selects the layers ``highest`` does, with
      |Δscore| ≤ 1e-3.
- 14. kernels — the per-kernel summary line (launches: the five RSA
+ 17. kernels — the per-kernel summary line (launches: the nine RSA
      evals; the encoding eval launches none).
 
 Then the card's name and power limit, and the final status line.
@@ -130,6 +160,7 @@ BOUND_ROUTE = {"float32": ("3xTF32 tensor cores", 3, 495e12),
 FMA_PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 MEM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 3e-3}
+TOL_WIDTH = 290_400  # the widest f32 rows TOL was set at (CustomCNN conv1); see tolerance()
 SRP_TOL = 1e-5  # of the largest |value|: f32 summation order only
 KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas's
     (1000, 4096, "float32"), (1000, 4096, "bfloat16"), (1000, 193600, "float32"),
@@ -139,7 +170,15 @@ KERNEL_SHAPES = [  # (n, d, dtype): the eval's RDM shapes, and stage_rdm_pallas'
     (257, 1031, "float32"), (257, 1031, "bfloat16"),  # ragged n and d: padded stride
     (100, 4096, "float32"), (100, 4096, "bfloat16"),  # n below one 128-row tile (TVSD test)
     (100, 1031, "float32"),                           # ... and ragged d
-    (1484, 193600, "float32"),  # THINGS evaluation when conv1 is selected: the widest
+    (1484, 193600, "float32"),  # THINGS evaluation when conv1 is selected
+    # phase-2 exact taps of the pretrained evals (n = 1,000 shared stimuli)
+    (1000, 3211264, "float32"), (1000, 1605632, "float32"),  # VGG16 conv1-2, conv3-4
+    (1000, 802816, "float32"),   # ResNet50 conv1, block1-3; VGG16 conv5-7
+    (1000, 401408, "float32"),   # ResNet50 block4-7; VGG16 conv8-10
+    (1000, 200704, "float32"),   # ResNet50 block8-13
+    (1000, 100352, "float32"),   # ResNet50 block14-16; VGG16 conv11-13
+    (1000, 151296, "float32"), (1000, 150528, "float32"),  # ViT-B block1-12, patch_embed
+    (1000, 1000, "float32"),     # ResNet50 fc1, ViT-B head (k = D = 1000)
 ]
 E2E = {"n_shared": 1000, "n_unique": 1000, "n_subjects": 2, "n_regions": 2,
        "n_voxels": 512, "img_size": 256}
@@ -160,6 +199,31 @@ TF32_PEAK_OPS = 495e12
 TRAIN = {"n_images": 1600, "batch": 256, "epochs": 2, "pca_n_classes": 32}
 STEP = {"batch": 256, "iters": 8, "classes": 1000, "parity_batch": 8}
 STEP_RTOL = 1e-4  # card vs CPU: cuDNN and the CPU sum in different orders
+# Parameters of the JAX package's models at 1000 classes (jax.eval_shape of
+# visreps_tpu/models; tests/test_torch_port_models.py holds these numbers
+# to the JAX models' own counts on the CPU).
+MODEL_PARAMS = {"ResNet18": 11_689_512, "ResNet50": 25_557_032, "VGG16": 138_357_544,
+                "ViTBase": 86_567_656, "ECTiedNet": 21_773_865}
+MODEL_TOL = 1e-4  # card vs CPU forward, every tap: max |Δ| / the tap's largest |value|
+# The pretrained evals: selection taps T (extract_pre_and_post), batch, the
+# weight file's seed, and three (port key, torchvision key) pairs that
+# must hold the file's values after the import: first layer, a middle
+# one, the head.
+PRETRAINED = {
+    "ResNet50": {"phase": "e2e_resnet50", "taps": 18, "batch": 256, "seed": 11, "probes": [
+        ("conv1.weight", "conv1.weight"),
+        ("layer3_5.bn2.running_var", "layer3.5.bn2.running_var"),
+        ("fc.weight", "fc.weight")]},
+    "ViTBase": {"phase": "e2e_vit", "taps": 14, "batch": 256, "seed": 12, "probes": [
+        ("conv_proj.weight", "conv_proj.weight"),
+        ("encoder_layer_6.mlp_0.weight", "encoder.layers.encoder_layer_6.mlp.0.weight"),
+        ("head.weight", "heads.head.weight")]},
+    "VGG16": {"phase": "e2e_vgg16", "taps": 30, "batch": 128, "seed": 13, "probes": [
+        ("conv1.weight", "features.0.weight"),
+        ("conv8.weight", "features.17.weight"),
+        ("fc3.weight", "classifier.6.weight")]},
+}
+REF_CKPT = {"classes": 64, "epoch": 20, "seed": 14}
 
 
 def emit(obj) -> None:
@@ -268,11 +332,39 @@ def phase_build():
           "warnings": warnings})
 
 
-def check_kernel(xin, std) -> float:
+def tolerance(d: int, dtype: str) -> float:
+    """The kernel-vs-plain tolerance: TOL, and in f32 beyond d = TOL_WIDTH
+    (the widest rows it was set at) growing as √d, as the rounding error
+    of an f32 sum of d products does in either version."""
+    if dtype != "float32":
+        return TOL[dtype]
+    return TOL[dtype] * max(1.0, math.sqrt(d / TOL_WIDTH))
+
+
+def f64_errors(xin, std, out, plain) -> dict:
+    """The kernel's and the plain version's max |error| against the same
+    RDM from an f64 Gram of the same rows (summed over blocks of 2¹⁸
+    columns), to show which side a wide-d difference comes from."""
+    import torch
+
+    n, d = xin.shape
+    gram = torch.zeros((n, n), dtype=torch.float64, device=xin.device)
+    for c in range(0, d, 1 << 18):
+        block = xin[:, c:c + (1 << 18)].double()
+        gram += block @ block.T
+    s = std.double()
+    ref = 1.0 - (gram / d / (s[:, None] * s[None, :] + 1e-12)).clamp(-1.0, 1.0)
+    ref.fill_diagonal_(0.0)
+    return {"f64_err_kernel": (out.double() - ref).abs().max().item(),
+            "f64_err_plain": (plain.double() - ref).abs().max().item()}
+
+
+def check_kernel(xin, std) -> dict:
     """Two kernel calls on these rows: each must count one launch, the
     output must be exactly symmetric with an exactly zero diagonal, the
-    two outputs bit-identical, and within TOL of the plain version.
-    Returns the max |err|."""
+    two outputs bit-identical, and within ``tolerance`` of the plain
+    version. Returns the max |err| and the tolerance, and for f32 rows
+    wider than TOL_WIDTH both versions' errors against an f64 Gram."""
     import torch
 
     from visreps_tpu_torch.ops import rdm_kernel
@@ -290,11 +382,15 @@ def check_kernel(xin, std) -> float:
         raise RuntimeError(f"rdm kernel diagonal not exactly 0 at ({n}, {d}) {dtype}")
     if not torch.equal(out, again):
         raise RuntimeError(f"rdm kernel not bit-reproducible at ({n}, {d}) {dtype}")
-    err = (out - rdm_kernel.rdm_from_centered_reference(xin, std)).abs().max().item()
-    if not err <= TOL[dtype]:
+    plain = rdm_kernel.rdm_from_centered_reference(xin, std)
+    err, tol = (out - plain).abs().max().item(), tolerance(d, dtype)
+    rec = {"max_abs_err": err, "tol": tol}
+    if dtype == "float32" and d > TOL_WIDTH:
+        rec.update(f64_errors(xin, std, out, plain))
+    if not err <= tol:
         raise RuntimeError(f"rdm kernel disagrees at ({n}, {d}) {dtype}: "
-                           f"max |err| {err} > {TOL[dtype]}")
-    return err
+                           f"max |err| {err} > {tol} ({rec})")
+    return rec
 
 
 def launch_plan(xin) -> dict:
@@ -316,14 +412,14 @@ def phase_kernel():
     records = []
     for n, d, dtype in KERNEL_SHAPES:
         xin, std = random_rows(n, d, dtype, gen)
-        err = check_kernel(xin, std)
+        checked = check_kernel(xin, std)
         ms, host_ms = time_kernel(xin, std)
         device = profile_kernel(xin, std)
         iters = timing_iters(n, d)
         plain_ms = time_ms(lambda: rdm_kernel.rdm_from_centered_reference(xin, std), iters)[0]
         library_ms = time_ms(lambda: torch.corrcoef(xin), iters)[0]
         rec = {"phase": "kernel", "name": "rdm", "n": n, "d": d, "dtype": dtype,
-               "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "host_ms": host_ms, **device,
+               **checked, "ms": ms, "host_ms": host_ms, **device,
                "plain_ms": plain_ms, "library_ms": library_ms, **bound(n, d, dtype),
                **launch_plan(xin), "tflops": float(n) * (n + 1) * d / ms / 1e9}
         emit(rec)
@@ -464,11 +560,13 @@ def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra)
     return rec
 
 
-def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row):
+def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row,
+             n_taps: int = 14, batch: int = 256, extra: dict | None = None):
     """The NSD RSA eval on the fixture (``drive``); checks results, db rows
     (``db_where`` selects this eval's; ``expect_row`` checks each row's
-    (cfg_id, epoch)), finite scores and one launch per RDM. Returns the
-    run (``drive``'s dict)."""
+    (cfg_id, epoch)), ``n_taps`` selection scores per result, finite
+    scores and one launch per RDM. ``extra`` (filled while the eval runs)
+    joins the printed line. Returns the run (``drive``'s dict)."""
     subjects = list(range(E2E["n_subjects"]))
     regions = NSD_REGIONS[: E2E["n_regions"]]
     run = drive([
@@ -476,19 +574,23 @@ def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_ro
         f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
         "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
         "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
-        "batchsize=256", "num_workers=8",
+        f"batchsize={batch}", "num_workers=8",
     ])
     results = run["results"]
     n_pairs = len(subjects) * len(regions)
-    check_rsa_results(results, n_pairs, 14)
+    check_rsa_results(results, n_pairs, n_taps)
     rows = db_rows(db_where)
     if len(rows) != n_pairs or not all(expect_row(*r[3:]) for r in rows):
         raise RuntimeError(f"results.db rows {rows}, expected {n_pairs} of this eval")
     unique_layers = len({r["layer"] for r in results})
-    check_launches(run, len(subjects) * (14 + len(regions)) + unique_layers + n_pairs,
-                   "S·(taps + R) + unique layers + pairs")
+    check_launches(run, len(subjects) * (n_taps + len(regions)) + unique_layers + n_pairs,
+                   f"S·(T + R) + U + P, T {n_taps}")
+    extra = dict(extra or {})
+    if "extraction_peak_gb" in extra:  # the peak statistic was reset before phase 2
+        extra["phase2_peak_gb"] = run["peak_mem_gb"]
+        run["peak_mem_gb"] = max(run["peak_mem_gb"], extra["extraction_peak_gb"])
     eval_record(phase, run, meta["n_stimuli"], meta["fixture_s"], db_rows=rows,
-                unique_layers=unique_layers)
+                unique_layers=unique_layers, batch=batch, **extra)
     return run
 
 
@@ -507,6 +609,148 @@ def phase_e2e_ckpt(meta: dict, checkpoint_dir: str):
         f"checkpoint_model=checkpoint_epoch_{TRAIN['epochs']}.pth"],
         f"cfg_id = {TRAIN['pca_n_classes']}",
         lambda cfg_id, epoch: cfg_id == TRAIN["pca_n_classes"] and epoch == TRAIN["epochs"])
+
+
+def phase_models() -> None:
+    """Each family of this slice at full width from seeded weights: its
+    parameter count against the JAX model's, a 2-image forward on the
+    card against the CPU's (every tap), and the card's ms per image of an
+    all-taps forward at the eval's batch (CUDA events over 3 batches
+    after a warm-up)."""
+    import torch
+
+    from visreps_tpu_torch.models.zoo import init_model
+
+    x = torch.randn((2, 3, 224, 224), generator=torch.Generator().manual_seed(4))
+    failures = []
+    for name, n_jax in MODEL_PARAMS.items():
+        model = init_model(name, 1000, seed=0, device="cpu")
+        points = [p for spec in model.TAPS.values() for p in spec]
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            _, want = model(x, capture=points)
+            model.to("cuda")
+            _, got = model(x.to("cuda"), capture=points)
+            if set(got) != set(want):
+                raise RuntimeError(f"{name}: the card's taps {sorted(got)} are not the CPU's")
+            errs = {p: ((got[p].cpu() - want[p]).abs().max() / want[p].abs().max()).item()
+                    for p in want}
+            batch = PRETRAINED.get(name, {}).get("batch", 256)
+            xb = torch.randn((batch, 3, 224, 224), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: model(xb, capture=points), 3)[0]
+        worst = max(errs, key=errs.get)
+        emit({"phase": "models", "model": name, "params": n_params, "params_jax": n_jax,
+              "taps": len(want), "max_rel_err": errs[worst], "worst_tap": worst,
+              "tol": MODEL_TOL, "batch": batch, "forward_ms": ms,
+              "ms_per_image": ms / batch, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if n_params != n_jax:
+            failures.append(f"{name}: {n_params} parameters, the JAX model has {n_jax}")
+        if not errs[worst] <= MODEL_TOL:
+            failures.append(f"{name}: tap {worst} on the card differs from the CPU by "
+                            f"{errs[worst]} > {MODEL_TOL}")
+        del model, want, got, xb
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
+def phase_ref_ckpt(meta: dict, tmp: Path) -> dict:
+    """A reference whole-module torch-zip checkpoint through
+    ``load_checkpoint`` on the card and the CPU, then the e2e eval of it."""
+    import torch
+
+    from visreps_tpu_torch.benchmarks.weights import write_reference_checkpoint
+    from visreps_tpu_torch.train.checkpoint import load_checkpoint
+
+    k, epoch = REF_CKPT["classes"], REF_CKPT["epoch"]
+    run_dir = tmp / "reference_checkpoints" / f"cfg{k}a"
+    run_dir.mkdir(parents=True)
+    path = run_dir / f"checkpoint_epoch_{epoch}.pth"
+    config = {"model_class": "custom_model", "model_name": "CustomCNN", "pca_labels": True,
+              "pca_n_classes": k, "seed": 1}
+    module = write_reference_checkpoint(path, num_classes=k, seed=REF_CKPT["seed"], epoch=epoch,
+                                        config=config)
+    (run_dir / "config.json").write_text(json.dumps(config))
+    card, payload = load_checkpoint(path, device="cuda")
+    cpu, _ = load_checkpoint(path, device="cpu")
+    x = torch.randn((8, 3, 224, 224), generator=torch.Generator().manual_seed(6))
+    with torch.inference_mode():
+        want = module(x)
+        on_cpu = cpu(x)[0]
+        on_card = card(x.to("cuda"))[0].cpu()
+    scale = want.abs().max().item()
+    check = {"magic": path.read_bytes()[:2].decode(), "config": payload["config"] == config,
+             "classes": card.num_classes, "device": next(card.parameters()).device.type,
+             "card_vs_cpu": (on_card - on_cpu).abs().max().item() / scale,
+             "cpu_vs_module": (on_cpu - want).abs().max().item() / scale, "tol": MODEL_TOL}
+    if not (check["magic"] == "PK" and check["config"] and check["classes"] == k
+            and check["device"] == "cuda" and check["card_vs_cpu"] <= MODEL_TOL
+            and check["cpu_vs_module"] <= MODEL_TOL):
+        raise RuntimeError(f"reference checkpoint load failed its checks: {check}")
+    del card, cpu
+    return run_eval("ref_ckpt", meta, [
+        "load_model_from=checkpoint", f"cfg_id={k}", f"checkpoint_dir={run_dir.parent}",
+        f"checkpoint_model={path.name}"], f"cfg_id = {k}",
+        lambda cfg_id, ep: cfg_id == k and ep == epoch, extra={"load_check": check})
+
+
+def phase_pretrained(meta: dict, tmp: Path, name: str) -> dict:
+    """The e2e eval of ``name`` with ``pretrained_dataset=imagenet1k``,
+    its weights from a seeded torchvision-layout file; checks that the
+    import took the file's values, and records the memory of the
+    extraction and of phase 2."""
+    import torch
+
+    from visreps_tpu_torch import evals
+    from visreps_tpu_torch.benchmarks.weights import write_torchvision_weights
+    from visreps_tpu_torch.models.extractor import FeatureExtractor
+
+    spec = PRETRAINED[name]
+    t0 = time.perf_counter()
+    path = write_torchvision_weights(tmp / "torch_weights", name, seed=spec["seed"])
+    extra = {"model": name, "weight_file": path.name, "weight_file_mb": path.stat().st_size / 1e6,
+             "weight_file_s": time.perf_counter() - t0}
+    os.environ["TORCH_WEIGHTS_DIR"] = str(path.parent)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    want = {mine: sd[theirs].clone() for mine, theirs in spec["probes"]}
+    del sd
+    load_model, exact = evals.load_model, FeatureExtractor.extract_layers_exact
+
+    def load(cfg, **kwargs):
+        model = load_model(cfg, **kwargs)
+        state = model.state_dict()
+        same = {k: torch.equal(state[k].cpu(), v) for k, v in want.items()}
+        extra["weights_from_file"] = same
+        if not all(same.values()):
+            raise RuntimeError(f"{name}: the loaded weights are not the file's: {same}")
+        return model
+
+    def exact_probe(self, loader, layer_names, stimulus_ids=None):
+        dims = set(self.tap_dims.values())
+        extra.update({
+            "tap_floats_per_image": sum(self.tap_dims.values()),
+            "srp_matrices_gb": sum(2 * d * self.srp.out_dim(d) for d in dims) / 1e9,
+            "extraction_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "exact_layers": {l: self.tap_dims[l] for l in layer_names},
+            "exact_gb": sum(4 * len(loader.dataset) * self.tap_dims[l] for l in layer_names) / 1e9,
+            "centred_copy_gb": max(4 * len(loader.dataset) * self.tap_dims[l]
+                                   for l in layer_names) / 1e9})
+        torch.cuda.reset_peak_memory_stats()
+        return exact(self, loader, layer_names, stimulus_ids)
+
+    evals.load_model, FeatureExtractor.extract_layers_exact = load, exact_probe
+    try:
+        run = run_eval(spec["phase"], meta, [
+            "load_model_from=torchvision", f"model_name={name}", "pretrained_dataset=imagenet1k"],
+            f"cfg_id = 'pretrained' AND model_name = '{name}'",
+            lambda cfg_id, epoch: cfg_id == "pretrained" and epoch == -1,
+            n_taps=spec["taps"], batch=spec["batch"], extra=extra)
+    finally:
+        evals.load_model, FeatureExtractor.extract_layers_exact = load_model, exact
+        del os.environ["TORCH_WEIGHTS_DIR"]
+    return run
 
 
 RSA_OVERRIDES = ["load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none",
@@ -865,8 +1109,8 @@ def phase_path(shapes: Counter, records: list) -> float:
 
             xin, std = random_rows(n, d, dtype, gen)
             iters = timing_iters(n, d)
-            rec = {"n": n, "d": d, "dtype": dtype, "max_abs_err": check_kernel(xin, std),
-                   "tol": TOL[dtype], "ms": time_kernel(xin, std)[0],
+            rec = {"n": n, "d": d, "dtype": dtype, **check_kernel(xin, std),
+                   "ms": time_kernel(xin, std)[0],
                    "plain_ms": time_ms(lambda: rdm_kernel.rdm_from_centered_reference(xin, std),
                                        iters)[0],
                    "library_ms": time_ms(lambda: torch.corrcoef(xin), iters)[0],
@@ -1191,6 +1435,7 @@ def main() -> int:
     phase_build()
     records = phase_kernel()
     phase_srp()
+    phase_models()
     tmp = Path(tempfile.mkdtemp(prefix="visreps_chip_smoke_"))
     try:
         meta = nsd_fixture(tmp)
@@ -1201,6 +1446,8 @@ def main() -> int:
         rsa_runs.append(phase_things(tmp))
         rsa_runs.append(phase_tvsd(tmp))
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
+        rsa_runs.append(phase_ref_ckpt(meta, tmp))
+        rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in PRETRAINED)
         phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
     finally:

@@ -241,6 +241,9 @@ class TestStandalone:
             "import importlib, pkgutil, sys, visreps_tpu_torch\n"
             "for m in pkgutil.walk_packages(visreps_tpu_torch.__path__, 'visreps_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "new = {'visreps_tpu_torch.models.' + m for m in ('resnet', 'vit', 'ecnet', "
+            "'nn_ops', 'torch_import')} | {'visreps_tpu_torch.benchmarks.weights'}\n"
+            "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'visreps_tpu')]\n"
             "assert not bad, bad\n")
@@ -288,7 +291,7 @@ class TestStandalone:
         ({"analysis": "encoding_score", "reconstruct_from_pcs": True}, "Analysis remainder"),
         ({"compare_method": "kendall"}, "Pearson/Kendall scoring"),
         ({"reconstruct_from_pcs": True}, "Analysis remainder"),
-        ({"model_name": "VGG16"}, "Remaining models"),
+        ({"model_name": "CLIPVisionTower"}, "Remaining models"),
     ])
     def test_out_of_slice_configs_raise(self, override, item):
         cfg = _cfg(Config).merge(override)

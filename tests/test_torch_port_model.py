@@ -17,7 +17,8 @@ from visreps_tpu_torch.data.transforms import get_transform
 from visreps_tpu_torch.models.convert import params_from_jax, srp_from_jax
 from visreps_tpu_torch.models.extractor import FeatureExtractor, expand_return_nodes
 from visreps_tpu_torch.models.standard import ALEXNET_TAPS, AlexNet
-from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES, _init_like_flax
+from visreps_tpu_torch.models.layers import init_like_flax as _init_like_flax
+from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES
 
 POINTS = [p for spec in ALEXNET_TAPS.values() for p in spec]
 

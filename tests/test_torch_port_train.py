@@ -556,14 +556,14 @@ class TestCheckpoint:
         assert type(raw["params"]["conv1"]["conv"]["kernel"]) is np.ndarray
         assert raw["params"]["conv1"]["conv"]["kernel"].shape == (11, 11, 3, 96)
         assert raw["batch_stats"]["fc2"]["bn"]["var"].shape == (4096,)
-        zipped = tmp_path / "ref.pth"
+        zipped = tmp_path / "ref.pth"  # the zip magic takes the reference-checkpoint route
         zipped.write_bytes(b"PK\x03\x04rest")
-        with pytest.raises(NotImplementedError, match="Remaining models"):
+        with pytest.raises(RuntimeError, match="zip archive"):
             tckpt.load_checkpoint(zipped, device="cpu")
-        raw["module_spec"] = {"class": "ResNet", "num_classes": 8}
-        other = tmp_path / "resnet.pth"
+        raw["module_spec"] = {"class": "NoSuchNet", "num_classes": 8}
+        other = tmp_path / "unknown.pth"
         other.write_bytes(pickle.dumps(raw))
-        with pytest.raises(NotImplementedError, match="Remaining models"):
+        with pytest.raises(ValueError, match="Unknown module class"):
             tckpt.load_checkpoint(other, device="cpu")
 
 

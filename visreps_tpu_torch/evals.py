@@ -1,6 +1,8 @@
-"""The evals (port of ``visreps_tpu/evals.py``) of an untrained
-torchvision-architecture model or of a checkpoint, for the four datasets
-the paper scores against.
+"""The evals (port of ``visreps_tpu/evals.py``) of a torchvision-
+architecture model (AlexNet, VGG16, ResNet18/50, ViT-B/16, ECTiedNet;
+untrained, or with local IMAGENET1K weights: cfg_id "pretrained") or of
+a checkpoint (either package's, or the reference's torch-zip file), for
+the four datasets the paper scores against.
 
 NSD and TVSD share one multi-subject path. Every tap is extracted once
 into the SRP store, then either the encoding score (``analysis=

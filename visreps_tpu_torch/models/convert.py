@@ -8,7 +8,13 @@ layer's (in, out) → (out, in)), ``scale`` becomes ``weight`` and ``bias``
 stays ``bias``; the ``batch_stats`` leaves ``mean`` / ``var`` become the
 BatchNorm buffers ``running_mean`` / ``running_var``. AlexNet's flat tree
 (``conv1/kernel``) and CustomCNN's nested one (``conv1/conv/kernel``,
-``conv1/bn/scale``) go through the same rule.
+``conv1/bn/scale``) go through the same rule, as do BatchNorm, GroupNorm
+and LayerNorm scales. Flax's attention kernels are 3-D: query/key/value
+(hidden, heads, head_dim) become a Linear's (heads·head_dim, hidden), out
+(heads, head_dim, hidden) becomes (hidden, heads·head_dim), and their
+(heads, head_dim) biases are flattened. Parameters owned directly keep
+their names: ECTiedNet's depthwise ``dw_weight`` (3, 3, 1, C) → (C, 1, 3, 3),
+``dw_bias``, ``gamma``, and ViT's ``cls_token`` and ``pos_embedding``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import torch
 from visreps_tpu_torch.ops.srp import SRPTransform
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_KEPT = ("dw_bias", "gamma", "cls_token", "pos_embedding")
+_ATTENTION = ("query", "key", "value", "out")
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -44,17 +52,23 @@ def params_from_jax(params: Mapping, batch_stats: Mapping | None = None) -> dict
     for path, leaf in _leaves(params):
         *mod, name = path
         arr = np.asarray(leaf)
-        if name == "kernel":
+        if name in ("kernel", "dw_weight"):
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3 and mod and mod[-1] == "out":
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            elif arr.ndim == 3:
+                arr = arr.reshape(arr.shape[0], -1).T
             else:
                 raise ValueError(f"{'/'.join(path)} has unsupported rank {arr.ndim}")
-            name = "weight"
+            name = "weight" if name == "kernel" else name
         elif name == "scale":
             name = "weight"
-        elif name != "bias":
+        elif name == "bias":
+            arr = arr.reshape(-1)  # attention biases are (heads, head_dim)
+        elif name not in _KEPT:
             raise ValueError(f"unknown parameter {'/'.join(path)}")
         state[".".join([*mod, name])] = _tensor(arr)
     for path, leaf in _leaves(batch_stats or {}):
@@ -66,10 +80,13 @@ def params_from_jax(params: Mapping, batch_stats: Mapping | None = None) -> dict
     return state
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict | None]:
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  num_heads: int | None = None) -> tuple[dict, dict | None]:
     """PyTorch state_dict → (Flax ``params``, ``batch_stats`` or None) as
     nested dicts of float32 numpy arrays, the inverse of
-    ``params_from_jax``. ``num_batches_tracked`` is dropped."""
+    ``params_from_jax``. ``num_heads`` splits the projections of a
+    ``self_attention`` module back into Flax's 3-D kernels.
+    ``num_batches_tracked`` is dropped."""
     params: dict = {}
     stats: dict = {}
 
@@ -84,8 +101,24 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> tuple[dict, dict | None]
         if name == "num_batches_tracked":
             continue
         arr = t.detach().to("cpu", torch.float32).numpy()
+        attention = len(mod) >= 2 and mod[-2] == "self_attention" and mod[-1] in _ATTENTION
+        if attention and num_heads is None:
+            raise ValueError(f"{key}: pass num_heads to split attention projections")
         if name in ("running_mean", "running_var"):
             put(stats, mod, name.removeprefix("running_"), arr.copy())
+        elif attention and name == "weight":
+            if mod[-1] == "out":  # (hidden, heads·hd) → (heads, hd, hidden)
+                put(params, mod, "kernel", np.ascontiguousarray(arr.T).reshape(num_heads, -1,
+                                                                               arr.shape[0]))
+            else:  # (heads·hd, hidden) → (hidden, heads, hd)
+                put(params, mod, "kernel", np.ascontiguousarray(arr.T).reshape(arr.shape[1],
+                                                                               num_heads, -1))
+        elif attention and name == "bias" and mod[-1] != "out":
+            put(params, mod, "bias", arr.reshape(num_heads, -1))
+        elif name == "dw_weight":
+            put(params, mod, name, np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
+        elif name in _KEPT:
+            put(params, mod, name, arr.copy())
         elif name == "weight":
             if arr.ndim == 4:
                 put(params, mod, "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))

@@ -2,9 +2,11 @@
 ``visreps_tpu/models/extractor.py:34-140, 505-934, 1041-1066``).
 
 One forward per batch captures every tap; each tap is flattened in
-(H, W, C) order (the JAX package's NHWC order) and projected by the
-seeded SRP on the device. uint8 batches are normalised on the device,
-after a pinned, non-blocking host→device copy.
+(H, W, C) order (the JAX package's NHWC order; ViT's (B, tokens, dim)
+taps token-major) and projected by the seeded SRP on the device, one tap
+at a time: a tap's flattened copy is dropped before the next is made.
+Exact taps are written straight into their store rows. uint8 batches are
+normalised on the device, after a pinned, non-blocking host→device copy.
 """
 from __future__ import annotations
 
@@ -47,10 +49,20 @@ def expand_return_nodes(tap_specs: dict, return_nodes: Sequence[str],
 
 
 def _flatten_hwc(t: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) → (B, H·W·C); (B, D) unchanged."""
+    """(B, C, H, W) → (B, H·W·C); (B, T, D) → (B, T·D); (B, D) unchanged."""
     if t.dim() == 4:
         t = t.permute(0, 2, 3, 1)
     return t.reshape(t.shape[0], -1)
+
+
+def _write_hwc(rows: torch.Tensor, t: torch.Tensor) -> None:
+    """Copy tap ``t`` into ``rows`` (B, D) in ``_flatten_hwc``'s order,
+    without a flattened temporary."""
+    if t.dim() == 4:
+        b, c, h, w = t.shape
+        rows.view(b, h, w, c).copy_(t.permute(0, 2, 3, 1))
+    else:
+        rows.copy_(t.reshape(t.shape[0], -1))
 
 
 class FeatureExtractor:
@@ -89,9 +101,9 @@ class FeatureExtractor:
             t = (t.to(torch.float32) / 255.0 - self._mean) / self._std
         return t.to(torch.float32).permute(0, 3, 1, 2)
 
-    def _flat_taps(self, x: torch.Tensor, points) -> dict[str, torch.Tensor]:
-        _, taps = self.model(x, capture=points)
-        return {p: _flatten_hwc(taps[p]) for p in points}
+    def _taps(self, x: np.ndarray, points) -> dict[str, torch.Tensor]:
+        """The raw taps of one host batch."""
+        return self.model(self._to_device(x), capture=points)[1]
 
     def _point_of(self, layer: str) -> str:
         for p in self.points:
@@ -127,10 +139,10 @@ class FeatureExtractor:
             if item is None:
                 break
             x, keys = item
-            flats = self._flat_taps(self._to_device(x), self.points)
+            taps = self._taps(x, self.points)
             b = len(keys)
             for p in self.points:
-                out = self.srp(flats[p])
+                out = self.srp(_flatten_hwc(taps.pop(p)))
                 if store == "device":
                     acts[self.alias[p]][len(ids):len(ids) + b] = out
                 else:
@@ -153,7 +165,9 @@ class FeatureExtractor:
 
         Returns ({layer: (N, D_layer) tensor on the device}, ids), rows
         in ``stimulus_ids`` order when given (ids absent from the loader
-        are dropped with a warning).
+        are dropped with a warning). Where the kept rows are already the
+        loader's first rows in order, each layer is a view of its store;
+        otherwise the rows are gathered.
         """
         point_of = {name: self._point_of(name) for name in layer_names}
         points = tuple(dict.fromkeys(point_of.values()))
@@ -163,9 +177,9 @@ class FeatureExtractor:
                  for p in points}
         all_ids: list = []
         for x, keys in loader:
-            flats = self._flat_taps(self._to_device(x), points)
+            taps = self._taps(x, points)
             for p in points:
-                store[p][len(all_ids):len(all_ids) + len(keys)] = flats[p]
+                _write_hwc(store[p][len(all_ids):len(all_ids) + len(keys)], taps.pop(p))
             all_ids.extend(keys)
         if len(all_ids) != n_total:
             raise RuntimeError(f"loader yielded {len(all_ids)} stimuli, expected {n_total}")
@@ -178,9 +192,11 @@ class FeatureExtractor:
                        "requested stimulus_ids absent from the loader output "
                        f"(kept {len(keep)})", style="warning")
             all_ids = [all_ids[i] for i in keep]
-        rows = None if keep is None else torch.as_tensor(keep, device=self.device)
-        acts = {name: store[p] if rows is None else store[p][rows]
-                for name, p in point_of.items()}
+        if keep is None or keep == list(range(len(keep))):
+            acts = {name: store[p][:len(all_ids)] for name, p in point_of.items()}
+        else:
+            rows = torch.as_tensor(keep, device=self.device)
+            acts = {name: store[p][rows] for name, p in point_of.items()}
         del store
         rprint(f"  Re-extracted {len(acts)} layers in one pass "
                f"({len(all_ids)} stimuli, exact, no SRP)", style="success")
@@ -214,7 +230,7 @@ class FeatureExtractor:
         for x, keys in loader:
             seg = np.asarray([seg_of.get(str(k), n_groups) for k in keys], np.int64)
             np.add.at(counts, seg[seg < n_groups], 1)
-            rows = self._flat_taps(self._to_device(x), (point,))[point]
+            rows = _flatten_hwc(self._taps(x, (point,))[point])
             acc.index_add_(0, torch.as_tensor(seg, device=self.device), rows)
         if (counts == 0).any():
             rprint(f"Warning: {int((counts == 0).sum())} of {n_groups} groups matched no "

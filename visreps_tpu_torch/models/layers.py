@@ -1,5 +1,5 @@
 """Model building blocks with activation taps (port of
-``visreps_tpu/models/layers.py:19-29, 70-173``).
+``visreps_tpu/models/layers.py:18-67, 70-173``).
 
 ``nn.BatchNorm2d/1d`` already have the semantics the JAX package's
 ``TorchBatchNorm`` copies (momentum 0.1, eps 1e-5, normalise with the
@@ -8,11 +8,19 @@ one). The one difference is a dense batch of one row in training mode:
 torch raises, the JAX package returns ``bias`` (x − mean = 0) and keeps
 the update finite with ``n / max(n − 1, 1)``. ``BatchNorm1d`` below does
 the same.
+
+The initialisers draw from an explicit ``torch.Generator`` and follow
+the JAX package's families: Flax's defaults (lecun-normal truncated
+kernels, zero biases, unit norm scales), He-normal fan_out where a
+module asks for it, xavier-uniform classifier heads. The pools
+(VALID max / average, torch's adaptive average) are ``torch.nn.functional``'s
+own; the ResNet stem's −inf-padded 3×3/2 max pool is
+``F.max_pool2d(x, 3, 2, padding=1)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +28,12 @@ from torch import nn
 
 #: Called with (tap name, value) at each tap point of a forward.
 TapFn = Callable[[str, torch.Tensor], None]
+
+# Flax's truncated-normal initialisers divide the stddev by the std of a
+# unit normal truncated to [-2, 2], so the truncated draw keeps the
+# variance asked for.
+_TRUNC_STD = 0.87962566103423978
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 
 
 def he_normal_fan_out_(weight: torch.Tensor, gen: torch.Generator) -> None:
@@ -31,6 +45,31 @@ def head_init_(weight: torch.Tensor, gen: torch.Generator) -> None:
     """Final-classifier init N(0, 1/√fan_in) (weight is (out, in))."""
     with torch.no_grad():
         weight.normal_(0.0, 1.0 / math.sqrt(weight.shape[1]), generator=gen)
+
+
+def lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    """Flax's default kernel init: variance 1 / fan_in, truncated at 2σ
+    (fan_in = in · kh · kw of an (out, in, kh, kw) or (out, in) weight)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, gen: torch.Generator,
+                   heads: Sequence[str] = ("fc3",)) -> None:
+    """Flax's default init over every submodule, in ``named_modules``
+    order: lecun-normal (truncated) conv and linear weights, xavier-uniform
+    for the modules named in ``heads``, zero biases, unit norm scales."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if name in heads:
+                nn.init.xavier_uniform_(mod.weight, generator=gen)
+            else:
+                lecun_normal_(mod.weight, gen)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, _NORMS):
+            mod.reset_parameters()
 
 
 class BatchNorm1d(nn.BatchNorm1d):

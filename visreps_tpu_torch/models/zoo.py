@@ -1,11 +1,11 @@
-"""Model factory (port of ``visreps_tpu/models/zoo.py:27-35, 75-88,
-187-284``): AlexNet for ``load_model_from=torchvision`` with
-``pretrained_dataset=none``, CustomCNN / TinyCustomCNN for
-``model_class=custom_model``, and checkpoints in the JAX package's
-format for ``load_model_from=checkpoint``."""
+"""Model factory (port of ``visreps_tpu/models/zoo.py:27-46, 75-88,
+187-284``): the torchvision-architecture families (AlexNet, VGG16,
+ResNet18/50, ViT-B/16, ECTiedNet) for ``load_model_from=torchvision``,
+untrained or with IMAGENET1K weights from a local torchvision file
+(``pretrained_dataset=imagenet1k``, ``models/torch_import.py``),
+CustomCNN / TinyCustomCNN for ``model_class=custom_model``, and
+checkpoints for ``load_model_from=checkpoint``."""
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
@@ -14,45 +14,42 @@ from visreps_tpu_torch.core.config import get_seed_letter
 from visreps_tpu_torch.core.logging import rprint
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.custom_cnn import CustomCNN, TinyCustomCNN
-from visreps_tpu_torch.models.standard import AlexNet
+from visreps_tpu_torch.models.ecnet import ECTiedNet
+from visreps_tpu_torch.models.resnet import ResNet18, ResNet50
+from visreps_tpu_torch.models.standard import VGG16, AlexNet
+from visreps_tpu_torch.models.vit import ViTBase
 
-# Default extraction points (reference: visreps/models/utils.py:27-31).
+# Default extraction points (reference: visreps/models/utils.py:27-31,
+# extended to every family).
 TORCHVISION_RETURN_NODES = {
     "AlexNet": ["conv1", "conv2", "conv3", "conv4", "conv5", "fc1", "fc2"],
+    "ResNet18": ["conv1", "block1", "block2", "block3", "block4",
+                 "block5", "block6", "block7", "block8", "fc1"],
+    "ResNet50": ["conv1"] + [f"block{i}" for i in range(1, 17)] + ["fc1"],
+    "VGG16": [f"conv{i}" for i in range(1, 14)] + ["fc1", "fc2"],
+    "ViTBase": ["patch_embed"] + [f"block{i}" for i in range(1, 13)] + ["head"],
+    "ECTiedNet": ["stem"] + [f"block{i}" for i in range(1, 5)] + ["fc1", "fc2"],
 }
 
-MODEL_REGISTRY = {"AlexNet": AlexNet, "CustomCNN": CustomCNN, "TinyCustomCNN": TinyCustomCNN}
-
-# Flax's truncated-normal initialisers divide the stddev by the std of a
-# unit normal truncated to [-2, 2], so the truncated draw keeps the
-# variance asked for.
-_TRUNC_STD = 0.87962566103423978
-
-
-@torch.no_grad()
-def _init_like_flax(model: nn.Module, gen: torch.Generator) -> None:
-    """The JAX package's init family: lecun-normal (fan_in, truncated)
-    kernels and zero biases, xavier-uniform for the final classifier."""
-    for name, mod in model.named_children():
-        if not isinstance(mod, (nn.Conv2d, nn.Linear)):
-            continue
-        if name == "fc3":
-            nn.init.xavier_uniform_(mod.weight, generator=gen)
-        else:
-            fan_in = mod.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
-        nn.init.zeros_(mod.bias)
+MODEL_REGISTRY = {
+    "AlexNet": AlexNet,
+    "VGG16": VGG16,
+    "ResNet18": ResNet18,
+    "ResNet50": ResNet50,
+    "ViTBase": ViTBase,
+    "ECTiedNet": ECTiedNet,
+    "CustomCNN": CustomCNN,
+    "TinyCustomCNN": TinyCustomCNN,
+}
 
 
 def build_model(model_name: str, num_classes: int, arch=None) -> nn.Module:
     """An uninitialised model; CustomCNN / TinyCustomCNN take the config's
     ``arch`` fields (``zoo.py:75-88`` of the JAX package)."""
     if model_name not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet (ROADMAP.md, 'Remaining models')")
-    if model_name == "AlexNet":
-        return AlexNet(num_classes=num_classes)
+        raise ValueError(f"Model '{model_name}' not found in registry: {list(MODEL_REGISTRY)}")
+    if model_name not in ("CustomCNN", "TinyCustomCNN"):
+        return MODEL_REGISTRY[model_name](num_classes=num_classes)
     arch = arch or {}
     return MODEL_REGISTRY[model_name](
         num_classes=num_classes,
@@ -67,14 +64,10 @@ def init_model(model_name: str = "AlexNet", num_classes: int = 1000, seed: int =
     """A fresh model in eval mode on ``device`` (CUDA unless ``"cpu"`` is
     asked for), its weights drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` (so the same seed gives the
-    same weights on every device)."""
+    same weights on every device) in its family's init."""
     model = build_model(model_name, num_classes, arch)
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    if isinstance(model, CustomCNN):
-        model.init_weights(gen)
-    else:
-        _init_like_flax(model, gen)
+    model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 
 
@@ -89,7 +82,8 @@ def load_model(cfg, num_classes: int | None = None,
     """The model a config asks for, on ``device`` (CUDA unless ``"cpu"``
     is asked for), in eval mode: a checkpoint (``load_model_from=
     checkpoint``), a fresh CustomCNN / TinyCustomCNN (``model_class=
-    custom_model``), or an untrained torchvision-architecture model."""
+    custom_model``), or a torchvision-architecture model, with the local
+    IMAGENET1K torchvision weights when ``pretrained_dataset=imagenet1k``."""
     if cfg.get("load_model_from") == "checkpoint":
         from visreps_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -103,8 +97,9 @@ def load_model(cfg, num_classes: int | None = None,
         name = "TinyCustomCNN" if "tiny" in model_name.lower() else "CustomCNN"
         return init_model(name, num_classes or 1000, seed=cfg.get("seed", 0), device=device,
                           arch=cfg.get("arch"))
-    if cfg.get("pretrained_dataset", "none") != "none":
-        raise NotImplementedError(
-            "pretrained weights are not ported yet (ROADMAP.md, 'Remaining models'); "
-            "use pretrained_dataset=none")
-    return init_model(model_name, num_classes or 1000, seed=cfg.get("seed", 0), device=device)
+    model = init_model(model_name, num_classes or 1000, seed=cfg.get("seed", 0), device=device)
+    if cfg.get("pretrained_dataset", "none") == "imagenet1k":
+        from visreps_tpu_torch.models.torch_import import load_pretrained_torch
+
+        model = load_pretrained_torch(model, model_name, num_classes)
+    return model

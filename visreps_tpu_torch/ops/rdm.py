@@ -22,6 +22,11 @@ from visreps_tpu_torch.ops.stats import (
     spearman_corr_dense,
 )
 
+# Elements of x·x made at once for the row variances (1 GB of f32): at
+# (1000, 3,211,264), VGG16's conv1 exact tap, the whole square would be
+# a third 12.8 GB copy beside the input and its centred copy.
+_SQUARE_ELEMS = 2**28
+
 
 def compute_rdm(representations: torch.Tensor, correlation: str = "pearson",
                 correction: float = 1e-12) -> torch.Tensor:
@@ -37,7 +42,12 @@ def compute_rdm(representations: torch.Tensor, correlation: str = "pearson",
     if corr_name == "spearman":
         x = rankdata_dense(x, dim=1)
     x = x - x.mean(dim=1, keepdim=True)
-    std = torch.sqrt((x * x).mean(dim=1) + correction)
+    rows = max(1, _SQUARE_ELEMS // max(x.shape[1], 1))
+    if x.shape[0] <= rows:
+        var = (x * x).mean(dim=1)
+    else:  # wide rows: the squares' temporary a block of rows at a time
+        var = torch.cat([(c * c).mean(dim=1) for c in x.split(rows)])
+    std = torch.sqrt(var + correction)
     std = torch.where(std < correction * 10, torch.ones_like(std), std)
     return rdm_from_centered(x.contiguous(), std.contiguous(), correction)
 

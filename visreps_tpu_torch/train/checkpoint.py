@@ -10,7 +10,9 @@ Directory ``model_checkpoints/{checkpoint_dir}/cfg{K}{seed_letter}/``
 ``batch_stats`` as numpy arrays in the Flax layout, ``input_size``,
 ``metrics`` and ``config``. Weights convert at save and load through
 ``models/convert.py``, so a checkpoint written by either package loads
-in the other. Optimizer state is not saved.
+in the other. Optimizer state is not saved. The reference's own
+checkpoints (a torch zip file holding the whole pickled module) load
+through ``models/torch_import.load_reference_checkpoint``.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ def setup_checkpoint_dir(cfg, model: nn.Module) -> tuple[str, dict]:
 
 def save_checkpoint(checkpoint_dir: str, epoch: int, model: nn.Module, metrics: dict,
                     cfg_dict: dict) -> str:
-    params, batch_stats = params_to_jax(model.state_dict())
+    params, batch_stats = params_to_jax(model.state_dict(), getattr(model, "num_heads", None))
     payload = {
         "epoch": epoch,
         "module_spec": model.spec(),
@@ -68,26 +70,31 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, model: nn.Module, metrics: 
 
 
 def build_from_spec(spec: dict) -> nn.Module:
+    """The module a ``module_spec`` names, from its constructor fields (a
+    ResNet's ``block_cls`` is stored as ``"__class__:Name"``)."""
+    from visreps_tpu_torch.models.resnet import ResNet
     from visreps_tpu_torch.models.zoo import MODEL_REGISTRY
 
-    kwargs = {k: v for k, v in spec.items() if k != "class"}
-    ctor = MODEL_REGISTRY.get(spec["class"])
+    kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in spec.items() if k != "class"}
+    ctor = ResNet if spec["class"] == "ResNet" else MODEL_REGISTRY.get(spec["class"])
     if ctor is None:
-        raise NotImplementedError(f"checkpoints of {spec['class']} are not ported yet "
-                                  "(ROADMAP.md, 'Remaining models')")
+        raise ValueError(f"Unknown module class in checkpoint: {spec['class']}")
     return ctor(**kwargs)
 
 
 def load_checkpoint(path: str | Path, device: str | torch.device | None = None):
     """(model in eval mode on ``device``, payload) from a checkpoint file
-    written by either package. Unpickles the file: load only checkpoints
-    this project wrote."""
+    written by either package, or from the reference's torch-zip file
+    (payload ``{"config": its config}``). Unpickles the file: load only
+    checkpoints from a trusted source."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
         magic = f.read(2)
     if magic == b"PK":
-        raise NotImplementedError("the reference's torch-zip checkpoints are not ported yet "
-                                  "(ROADMAP.md, 'Remaining models')")
-    device = resolve_device(device)
+        from visreps_tpu_torch.models.torch_import import load_reference_checkpoint
+
+        model, config = load_reference_checkpoint(path, device=device)
+        return model, {"config": config}
     with open(path, "rb") as f:
         payload = pickle.load(f)
     model = build_from_spec(payload["module_spec"])

@@ -94,6 +94,10 @@ class Trainer:
         if cfg.get("resume_from_epoch", 0) or cfg.get("save_resume_state"):
             raise NotImplementedError("mid-training resume is not ported yet "
                                       "(ROADMAP.md, 'Training remainder')")
+        if (cfg.get("model_class") == "standard_model"
+                and cfg.get("model_name", "AlexNet") != "AlexNet"):
+            raise NotImplementedError(f"training {cfg.model_name} is not ported yet "
+                                      "(ROADMAP.md, 'Training remainder')")
         if cfg.get("train_compute_dtype") not in (None, "f32", "float32"):
             raise NotImplementedError(f"train_compute_dtype={cfg.train_compute_dtype} is not "
                                       "ported yet (ROADMAP.md, 'Training remainder')")
