@@ -49,7 +49,8 @@ non-zero without the final line:
      batches were on the card, the checkpoint files, and that epoch 2's
      checkpoint loads back bit-identically; prints the loss per step,
      ms per step (CUDA events, steps 2–10), images/s, the seconds the
-     step loop waited on the loader and peak device memory.
+     step loop waited on the loader, the images its loaders served by
+     decode route (``data/loader.ROUTES``) and peak device memory.
   7. train_step — the train step alone (CustomCNN, 1000 classes, batch
      256 on the card, AdamW): ms per step over 8 steps after a warm-up,
      images/s, peak memory, and its bound (3 × the forward's operations
@@ -60,6 +61,27 @@ non-zero without the final line:
   8. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
      wrote (``load_model_from=checkpoint``, cfg_id 32, epoch 2), with the
      same checks; its rows must carry cfg_id 32 and epoch 2.
+  8a. trace — ``core/profiling.trace`` (torch.profiler, CPU and CUDA)
+     around the e2e eval (with e2e's checks, as trace_e2e) and around 10
+     trainer steps in train_step's configuration (CustomCNN, 1000
+     classes, batch 256, AdamW, on the train phase's JPEGs, no
+     evaluation). For each: the device's busy share (the union of kernel,
+     memcpy and memset intervals over the traced window), the five device
+     operations that took the most time, the five longest idle gaps with
+     the host operation across each, and the trace's size.
+  8b. runners — ``runners/train_runner`` over seed 1 × pca_n_classes
+     [2, 4] (1 epoch each on the train phase's JPEGs), then
+     ``runners/eval_runner`` over both checkpoints (e2e's configuration,
+     eval_checkpoint_at_epoch 1): four ``python -m visreps_tpu_torch.run``
+     subprocesses on the card. Checks both runners' exit codes, the two
+     checkpoint files and 4 results.db rows per cfg_id at epoch 1.
+  8c. decode — whether the C++ JPEG/PNG decoder (``native/``, g++ with
+     libjpeg and libpng) builds here, with the compiler's message when it
+     does not; where it builds, ``decode_batch`` and ``decode_batch_u8``
+     against the port's PIL transform on THINGS' pool (normalised: mean
+     |Δ| < 0.02, max < 0.15; uint8: mean < 2, max ≤ 40 gray levels); and
+     the images/s of each route that runs here through the eval's loader
+     (2,048 images, batch 512, 16 workers, cache off).
   9. things — the THINGS eval (the JAX bench's stage_things_e2e:
      untrained AlexNet, 14 taps, SRP k=4096, Spearman, 1000 bootstraps,
      uint8 transfer, results.db) on a fixture of 1,854 concepts × 14
@@ -68,7 +90,11 @@ non-zero without the final line:
      region and subject "N/A", 14 selection scores, finite scores and
      1000 bootstrap scores, 370 selection / 1,484 evaluation concepts,
      the store, the concept means and the selected layer's re-extracted
-     means on the card, and 14 + 1 + 2 RDM launches.
+     means on the card, and 14 + 1 + 2 RDM launches. The decode cache
+     holds all 25,956 ids after the first pass and the re-extraction
+     decodes none (every batch from the cache); prints each pass's decode
+     routes, the cache's entries and bytes, scoring_re_extract_s and the
+     host's peak RSS.
  10. tvsd — the TVSD eval (stage_tvsd_e2e: n_select 1000, the same
      width) on 22,248 train + 100 test JPEG ids (the same pool) × 2
      monkeys × V1/V4/IT × 256 sites. Checks 6 results and rows and
@@ -97,8 +123,9 @@ non-zero without the final line:
      the peak memory of extraction and of phase 2 with the exact layers'
      widths and bytes.
      Each eval phase prints its wall and phase times, extraction images/s
-     with the loader's wait, peak device memory, fixture seconds and the
-     RDM shapes it asked for; the checks of e2e hold for each (results,
+     with the loader's wait, the stimuli its loaders served by decode
+     route, peak device memory, fixture seconds and the RDM shapes it
+     asked for; the checks of e2e hold for each (results,
      rows, finite scores, S·(T + R) + U + P launches for T taps).
  14. path — the RDM shapes every RSA eval called, with their launch
      counts and the kernel's time at each: its time on the main path, Σ
@@ -224,6 +251,20 @@ PRETRAINED = {
         ("fc3.weight", "classifier.6.weight")]},
 }
 REF_CKPT = {"classes": 64, "epoch": 20, "seed": 14}
+# decode: images of THINGS' pool per timed pass, at THINGS' batch and
+# num_workers; the C++ decoder against the port's PIL transform on the
+# first ``check`` of them within tests/test_native_decode.py's bounds
+# (normalised: mean and max |Δ|; uint8: mean and max gray levels).
+DECODE = {"n_images": 2048, "batch": 512, "workers": 16, "check": 64}
+NATIVE_TOL = {"mean": 0.02, "max": 0.15, "u8_mean": 2.0, "u8_max": 40}
+# trace: the trainer in train_step's configuration (CustomCNN, 1000
+# classes, batch 256, AdamW) on the train phase's images: 2 epochs × 5
+# steps, no evaluation, no checkpoint.
+TRACE_TRAIN = {"epochs": 2, "steps": 10}
+# runners: train_runner over seed 1 × pca_n_classes, 1 epoch each, on the
+# train phase's images; then eval_runner over those checkpoints (the e2e
+# eval's configuration, eval_checkpoint_at_epoch 1).
+RUNNERS = {"pca_n_classes": [2, 4], "epochs": 1}
 
 
 def emit(obj) -> None:
@@ -478,11 +519,13 @@ def drive(overrides: list[str]) -> dict:
     kernel's launch count set to 0 just before and read just after, and
     the RDM shapes ``compute_rdm`` handed the kernel wrapper counted.
     Returns the results, the launches, the shapes (a Counter of (n, d,
-    dtype)), the wall seconds, the eval's phase times and the peak
-    device memory (GB)."""
+    dtype)), the wall seconds, the eval's phase times, the stimuli its
+    loaders served by route (``data/loader.ROUTES``: native, pil, array,
+    brick, cache) and the peak device memory (GB)."""
     import torch
 
     from visreps_tpu_torch import evals, run
+    from visreps_tpu_torch.data import loader
     from visreps_tpu_torch.ops import rdm as rdm_ops
     from visreps_tpu_torch.ops import rdm_kernel
 
@@ -497,6 +540,7 @@ def drive(overrides: list[str]) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rdm_ops.rdm_from_centered = probe
+    routes = Counter(loader.ROUTES)
     try:
         rdm_kernel.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -509,6 +553,7 @@ def drive(overrides: list[str]) -> dict:
         rdm_ops.rdm_from_centered = wrapper
     return {"results": results, "launches": launches, "shapes": shapes, "seconds": wall,
             "phases": dict(evals.LAST_PHASE_TIMES),
+            "decode_routes": dict(Counter(loader.ROUTES) - routes),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -543,13 +588,14 @@ def db_rows(where: str) -> list:
 
 def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra) -> dict:
     """The line each eval phase prints: wall and phase times, extraction
-    images/s and the loader's wait, peak memory, fixture seconds, the
-    kernel's launches and the RDM shapes asked for."""
+    images/s and the loader's wait, the decode routes, peak memory,
+    fixture seconds, the kernel's launches and the RDM shapes asked for."""
     phases = run["phases"]
     rec = {"phase": phase, "seconds": run["seconds"], "fixture_s": fixture_s,
            "n_images": n_images, "n_results": len(run["results"]),
            "rdm_launches": run["launches"],
            "rdm_shapes": [[*k, v] for k, v in sorted(run["shapes"].items())],
+           "decode_routes": run["decode_routes"],
            "phase_times_s": phases, "peak_mem_gb": run["peak_mem_gb"], **extra}
     if "extraction_s" in phases:
         rec["images_per_s"] = n_images / phases["extraction_s"]
@@ -759,27 +805,121 @@ RSA_OVERRIDES = ["load_model_from=torchvision", "model_name=AlexNet", "pretraine
                  "log_expdata=true", "num_workers=16"]
 
 
+def host_peak_rss_gb() -> float:
+    """This process's peak resident host memory so far (GB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_decode(tmp: Path) -> dict:
+    """The C++ JPEG/PNG decoder where the script runs: whether it builds (with
+    the compiler's message when it does not); where it builds,
+    decode_batch and decode_batch_u8 against the port's PIL transform on
+    THINGS' JPEG pool within tests/test_native_decode.py's bounds; and the
+    images/s of each route that runs here through the eval's loader
+    (THINGS' batch and num_workers, uint8 feed, decode cache off)."""
+    import numpy as np
+
+    from visreps_tpu_torch import native
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.data import loader
+    from visreps_tpu_torch.data.transforms import get_transform, load_image
+
+    t0 = time.perf_counter()
+    fixture.ensure_things_fixture(tmp / "fixture", **THINGS)
+    pool = [str(p) for p in fixture.ensure_jpeg_pool(tmp / "fixture", THINGS["n_jpeg"],
+                                                     THINGS["img_size"])]
+    fixture_s = time.perf_counter() - t0
+    available = native.native_available()
+    rec = {"phase": "decode", "native_available": available, "build_error": native.BUILD_ERROR,
+           "fixture_s": fixture_s, "n_images": DECODE["n_images"], "batch": DECODE["batch"],
+           "num_workers": DECODE["workers"]}
+    problems = []
+    if available:
+        paths = pool[: DECODE["check"]]
+        got = native.decode_batch(paths)
+        ref = np.stack([get_transform("imgnet")(load_image(p)) for p in paths])
+        diff = np.abs(got - ref).reshape(len(paths), -1)
+        got8 = native.decode_batch_u8(paths)
+        ref8 = np.stack([get_transform("imgnet", normalize=False)(load_image(p)) for p in paths])
+        diff8 = np.abs(got8.astype(np.int16) - ref8.astype(np.int16)).reshape(len(paths), -1)
+        rec["vs_pil"] = {"n": len(paths), "mean_abs": float(diff.mean(1).max()),
+                         "max_abs": float(diff.max()), "u8_mean": float(diff8.mean(1).max()),
+                         "u8_max": int(diff8.max()), "bounds": NATIVE_TOL}
+        if not (rec["vs_pil"]["mean_abs"] < NATIVE_TOL["mean"]
+                and rec["vs_pil"]["max_abs"] < NATIVE_TOL["max"]
+                and rec["vs_pil"]["u8_mean"] < NATIVE_TOL["u8_mean"]
+                and rec["vs_pil"]["u8_max"] <= NATIVE_TOL["u8_max"]):
+            problems.append(f"native decode off PIL's beyond its bounds: {rec['vs_pil']}")
+
+    stimuli = {f"img{i:05d}": p for i, p in enumerate(pool[: DECODE["n_images"]])}
+    cap, real_available = os.environ.get("VISREPS_DECODE_CACHE_MAX"), native.native_available
+    os.environ["VISREPS_DECODE_CACHE_MAX"] = "0"
+    try:
+        for route in ("native", "pil") if available else ("pil",):
+            native.native_available = real_available if route == "native" else (lambda: False)
+            dl = loader.make_stimuli_loader(stimuli, get_transform("imgnet", normalize=False),
+                                            DECODE["batch"], DECODE["workers"])
+            before = Counter(loader.ROUTES)
+            t0 = time.perf_counter()
+            n = sum(len(keys) for _, keys in dl)
+            secs = time.perf_counter() - t0
+            served = dict(Counter(loader.ROUTES) - before)
+            if served != {route: len(stimuli)} or n != len(stimuli):
+                problems.append(f"the {route} pass served {served}")
+            rec[f"{route}_images_per_s"] = n / secs
+    finally:
+        native.native_available = real_available
+        if cap is None:
+            os.environ.pop("VISREPS_DECODE_CACHE_MAX")
+        else:
+            os.environ["VISREPS_DECODE_CACHE_MAX"] = cap
+    emit(rec)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return rec
+
+
 def phase_things(tmp: Path) -> dict:
     """The THINGS eval (stage_things_e2e's configuration) on its fixture:
     1,854 concepts × 14 JPEGs, 66-d embeddings. Checks one result and one
     results.db row with region and subject "N/A", 14 selection scores,
     finite scores and 1000 bootstrap scores, 370 selection and 1,484
     evaluation concepts, the store, the concept means and the selected
-    layer's re-extracted means on the card, and 14 + 1 + 2 RDM launches."""
+    layer's re-extracted means on the card, and 14 + 1 + 2 RDM launches.
+    The decode cache: on, holding every id after the first pass, and the
+    re-extraction pass decodes nothing (every batch from the cache).
+    Prints each pass's decode routes, the cache's entries and bytes, and
+    the host's peak RSS before and after."""
     import torch
 
     from visreps_tpu_torch import evals
     from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.data import loader
     from visreps_tpu_torch.models.extractor import FeatureExtractor
 
     t0 = time.perf_counter()
     meta = fixture.ensure_things_fixture(tmp / "fixture", **THINGS)
     fixture_s = time.perf_counter() - t0
     seen = Counter()
+    passes = {}  # per pass: the decode routes, and the cache after the first
+    rss_before = host_peak_rss_gb()
     originals = {"prepare": evals.prepare_concept_alignment,
                  "align": evals.compute_traintest_alignment,
                  "mean": FeatureExtractor.extract_single_layer_mean,
-                 "single": FeatureExtractor.extract_single_layer}
+                 "single": FeatureExtractor.extract_single_layer,
+                 "acts": FeatureExtractor.get_activations}
+
+    def routed(name, fn, dl):
+        before = Counter(loader.ROUTES)
+        out = fn()
+        passes[name] = {"routes": dict(Counter(loader.ROUTES) - before),
+                        "cache_on": dl.dataset.cache_enabled, **dl.dataset.cache_stats()}
+        return out
+
+    def acts(self, dl, *args, **kwargs):
+        return routed("extraction", lambda: originals["acts"](self, dl, *args, **kwargs), dl)
 
     def prepare(cfg, acts, *args):
         seen.update(f"store {a.device.type} {a.dtype}" for a in acts.values())
@@ -791,20 +931,21 @@ def phase_things(tmp: Path) -> dict:
         seen[f"concepts {selection.neural.shape[0]} / {evaluation.neural.shape[0]}"] += 1
         return originals["align"](cfg, selection, evaluation, **kwargs)
 
-    def mean(self, *args, **kwargs):
-        out = originals["mean"](self, *args, **kwargs)
+    def mean(self, dl, *args, **kwargs):
+        out = routed("re_extraction", lambda: originals["mean"](self, dl, *args, **kwargs), dl)
         seen[f"re-extracted means {out[0].device.type} {tuple(out[0].shape)}"] += 1
         return out
 
-    def single(self, *args, **kwargs):
+    def single(self, dl, *args, **kwargs):
         seen["host re-extraction"] += 1
-        return originals["single"](self, *args, **kwargs)
+        return routed("re_extraction", lambda: originals["single"](self, dl, *args, **kwargs), dl)
 
     cwd = os.getcwd()
     os.chdir(meta["root"])  # the loader reads datasets/neural/things/ relative to it
     evals.prepare_concept_alignment, evals.compute_traintest_alignment = prepare, align
     FeatureExtractor.extract_single_layer_mean = mean
     FeatureExtractor.extract_single_layer = single
+    FeatureExtractor.get_activations = acts
     try:
         run = drive([*RSA_OVERRIDES, "neural_dataset=things-behavior", "uint8_transfer=true",
                      "batchsize=512"])
@@ -814,6 +955,7 @@ def phase_things(tmp: Path) -> dict:
         evals.compute_traintest_alignment = originals["align"]
         FeatureExtractor.extract_single_layer_mean = originals["mean"]
         FeatureExtractor.extract_single_layer = originals["single"]
+        FeatureExtractor.get_activations = originals["acts"]
     check_rsa_results(run["results"], 1, 14)
     rows = db_rows("neural_dataset = 'things-behavior'")
     problems = []
@@ -825,11 +967,21 @@ def phase_things(tmp: Path) -> dict:
     if any(seen[k] != v for k, v in expected_seen.items()) or on_card != 1 \
             or seen["host re-extraction"]:
         problems.append(f"store, means or concepts off the card or miscounted: {dict(seen)}")
+    n = meta["n_images"]
+    first, second = passes.get("extraction", {}), passes.get("re_extraction", {})
+    decoded = sum(v for k, v in second.get("routes", {}).items() if k != "cache")
+    if not first.get("cache_on") or first.get("entries") != n or sum(first["routes"].values()) != n:
+        problems.append(f"the first pass did not fill the decode cache: {first}")
+    if decoded or second.get("routes", {}).get("cache") != n:
+        problems.append(f"the re-extraction decoded {decoded} items: {second}")
     if problems:
         raise RuntimeError("; ".join(problems))
     check_launches(run, 14 + 1 + 2, "14 selection + 1 embedding + 2 evaluation RDMs")
     eval_record("things", run, meta["n_images"], fixture_s, n_concepts=meta["n_concepts"],
-                n_jpeg=meta["n_jpeg"], db_rows=rows, probes=dict(seen))
+                n_jpeg=meta["n_jpeg"], db_rows=rows, probes=dict(seen), passes=passes,
+                re_extraction_decoded=decoded,
+                scoring_re_extract_s=run["phases"]["scoring_re_extract_s"],
+                host_peak_rss_gb={"before": rss_before, "after": host_peak_rss_gb()})
     return run
 
 
@@ -941,20 +1093,23 @@ def custom_cnn_forward_flops(num_classes: int, size: int = 224) -> float:
     return 2.0 * macs
 
 
-def phase_train(tmp: Path) -> str:
+def phase_train(tmp: Path) -> tuple[str, dict]:
     """Train CustomCNN on PCA labels through the CLI's entry point; returns
-    the checkpoint directory the eval reads (``{dir}`` of ``{dir}/cfg32a``)."""
+    the checkpoint directory the eval reads (``{dir}`` of ``{dir}/cfg32a``)
+    and the fixture's overrides (``dataset_path``, ``label_file``,
+    ``pca_labels_folder``, with CSVs for the runners' granularities too)."""
     import torch
 
     from visreps_tpu_torch import run
     from visreps_tpu_torch.benchmarks.fixture import write_imagenet_fixture
+    from visreps_tpu_torch.data import loader
     from visreps_tpu_torch.models.convert import params_from_jax
     from visreps_tpu_torch.train import checkpoint as ckpt
     from visreps_tpu_torch.train import trainer as trainer_mod
 
     t0 = time.perf_counter()
     data = write_imagenet_fixture(tmp / "imagenet", TRAIN["n_images"],
-                                  pca_n_classes=TRAIN["pca_n_classes"])
+                                  pca_n_classes=[TRAIN["pca_n_classes"], *RUNNERS["pca_n_classes"]])
     fixture_s = time.perf_counter() - t0
     checkpoint_dir = str(tmp / "model_checkpoints")
     steps = []  # per step: (start event, stop event, batch device, params devices)
@@ -972,6 +1127,7 @@ def phase_train(tmp: Path) -> str:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer_mod.train_step = probe
+    routes = Counter(loader.ROUTES)
     try:
         t0 = time.perf_counter()
         trainer = run.main([
@@ -1018,9 +1174,10 @@ def phase_train(tmp: Path) -> str:
           "grad_norm": [h["grad_norm"] for h in history],
           "step_ms": step_ms, "ms_per_step": ms, "images_per_s": TRAIN["batch"] / ms * 1e3,
           "loader_wait_s": trainer.loader_wait_s,
+          "decode_routes": dict(Counter(loader.ROUTES) - routes),
           "metrics_csv": (run_dir / "training_metrics.csv").read_text().splitlines(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return checkpoint_dir
+    return checkpoint_dir, data
 
 
 def _step_cfg():
@@ -1089,6 +1246,128 @@ def phase_train_step():
     if not (abs(l_gpu - l_cpu) <= STEP_RTOL * abs(l_cpu)
             and abs(g_gpu - g_cpu) <= STEP_RTOL * abs(g_cpu) and stat_err <= STEP_RTOL):
         raise RuntimeError(f"train step on the card disagrees with the CPU: {rec['parity']}")
+
+
+def phase_trace(meta: dict, tmp: Path, data: dict) -> dict:
+    """``core/profiling.trace`` around the e2e eval (``run_eval``, with all
+    its checks) and around 10 trainer steps (``run.main`` in train_step's
+    configuration on the train phase's images). For each trace: the
+    device's busy share over the traced window (the union of kernel,
+    memcpy and memset intervals), the five device operations that took
+    the most time and the five longest idle gaps with the host operation
+    across each (``profiling.summarize_trace``), and the trace's size."""
+    import torch
+
+    from visreps_tpu_torch import run
+    from visreps_tpu_torch.core import profiling
+
+    out = {"phase": "trace"}
+    with profiling.trace(tmp / "traces") as path:
+        t0 = time.perf_counter()
+        ev = run_eval("trace_e2e", meta, ["load_model_from=torchvision", "model_name=AlexNet",
+                                          "pretrained_dataset=none"],
+                      "cfg_id = 'untrained'", lambda cfg_id, epoch: epoch == -1)
+        traced_s = time.perf_counter() - t0
+    out["e2e"] = {"wall_s": ev["seconds"], "traced_s": traced_s,
+                  "trace_mb": path.stat().st_size / 1e6, **profiling.summarize_trace(path)}
+    path.unlink()
+
+    steps_per_epoch = int(TRAIN["n_images"] * 0.8) // STEP["batch"]
+    if steps_per_epoch * TRACE_TRAIN["epochs"] != TRACE_TRAIN["steps"]:
+        raise RuntimeError("the train fixture does not give the traced step count")
+    torch.cuda.synchronize()
+    with profiling.trace(tmp / "traces") as path:
+        t0 = time.perf_counter()
+        trainer = run.main([
+            "--mode", "train", "--config", str(ROOT / "configs/train/base.json"), "--override",
+            "pca_labels=false", f"batchsize={STEP['batch']}",
+            f"num_epochs={TRACE_TRAIN['epochs']}", "warmup_epochs=1", "num_workers=16",
+            "log_interval=1000", "log_checkpoints=false", *(f"{k}={v}" for k, v in data.items())])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    if len(trainer.history) != TRACE_TRAIN["steps"] or trainer.model.fc3.out_features != 1000:
+        raise RuntimeError(f"{len(trainer.history)} traced steps, expected "
+                           f"{TRACE_TRAIN['steps']} at 1000 classes")
+    out["train"] = {"steps": len(trainer.history), "traced_s": traced_s,
+                    "loader_wait_s": trainer.loader_wait_s,
+                    "trace_mb": path.stat().st_size / 1e6, **profiling.summarize_trace(path)}
+    path.unlink()
+    emit(out)
+    if not all(0 < out[k]["busy_share"] <= 1 and out[k]["n_device_events"] for k in ("e2e", "train")):
+        raise RuntimeError("a trace holds no device work")
+    return out
+
+
+def _cli_exit(main, argv: list[str]) -> int:
+    """The exit code a runner CLI ends with."""
+    try:
+        main(argv)
+    except SystemExit as e:
+        return e.code or 0
+    return 0
+
+
+def phase_runners(tmp: Path, data: dict) -> dict:
+    """The sweep runners as a user runs them on the card: ``train_runner``
+    over a grid of seed 1 × pca_n_classes [2, 4], 1 epoch each, on the
+    train phase's images; then ``eval_runner`` over the two checkpoints
+    (the e2e eval's configuration from a config file, cfg_id [2, 4],
+    eval_checkpoint_at_epoch 1). Every run is a ``python -m
+    visreps_tpu_torch.run`` subprocess. Checks both runners' exit codes
+    (0 only when every run exited 0), the two checkpoint files, and
+    4 results.db rows per cfg_id at epoch 1."""
+    import torch
+
+    from visreps_tpu_torch.runners import eval_runner, train_runner
+
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    ckpt_dir = tmp / "runner_checkpoints"
+    train_grid, eval_grid, eval_cfg = (tmp / "train_grid.json", tmp / "eval_grid.json",
+                                       tmp / "eval_config.json")
+    train_grid.write_text(json.dumps({
+        "seed": 1, "pca_labels": True, "pca_n_classes": RUNNERS["pca_n_classes"],
+        "num_epochs": RUNNERS["epochs"], "warmup_epochs": 0, "batchsize": TRAIN["batch"],
+        "num_workers": 16, "log_interval": 1, "checkpoint_interval": 1,
+        "log_checkpoints": True, "checkpoint_dir": str(ckpt_dir), **data}))
+    eval_grid.write_text(json.dumps({
+        "seed": 1, "cfg_id": RUNNERS["pca_n_classes"], "checkpoint_dir": str(ckpt_dir),
+        "eval_checkpoint_at_epoch": RUNNERS["epochs"]}))
+    cfg = json.loads((ROOT / "configs/eval/base.json").read_text())
+    cfg.update({"neural_dataset": "nsd", "analysis": "rsa", "compare_method": "spearman",
+                "subject_idx": list(range(E2E["n_subjects"])),
+                "region": NSD_REGIONS[: E2E["n_regions"]], "bootstrap": True,
+                "n_bootstrap": 1000, "n_select": 1000, "srp_k": 4096,
+                "extract_pre_and_post": True, "uint8_transfer": True, "batchsize": 256,
+                "num_workers": 8})
+    eval_cfg.write_text(json.dumps(cfg))
+    pythonpath = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), pythonpath]))
+    try:
+        t0 = time.perf_counter()
+        train_rc = _cli_exit(train_runner.main, [
+            "--grid", str(train_grid), "--config", str(ROOT / "configs/train/base.json")])
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_rc = _cli_exit(eval_runner.main, ["--grid", str(eval_grid), "--config", str(eval_cfg)])
+        eval_s = time.perf_counter() - t0
+    finally:
+        if pythonpath is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = pythonpath
+    ckpts = {k: (ckpt_dir / f"cfg{k}a" / f"checkpoint_epoch_{RUNNERS['epochs']}.pth").is_file()
+             for k in RUNNERS["pca_n_classes"]}
+    rows = Counter(r[3] for r in db_rows(
+        f"epoch = {RUNNERS['epochs']} AND cfg_id IN ({', '.join(map(str, ckpts))})"))
+    n_pairs = E2E["n_subjects"] * E2E["n_regions"]
+    rec = {"phase": "runners", "train_runner_rc": train_rc, "eval_runner_rc": eval_rc,
+           "train_runner_s": train_s, "eval_runner_s": eval_s, "checkpoints": ckpts,
+           "db_rows_per_cfg_id": dict(rows), "runs": 2 * len(ckpts)}
+    emit(rec)
+    if train_rc or eval_rc or not all(ckpts.values()) \
+            or rows != {k: n_pairs for k in RUNNERS["pca_n_classes"]}:
+        raise RuntimeError(f"the runners' sweep failed: {rec}")
+    return rec
 
 
 def phase_path(shapes: Counter, records: list) -> float:
@@ -1440,9 +1719,12 @@ def main() -> int:
     try:
         meta = nsd_fixture(tmp)
         rsa_runs = [phase_e2e(meta)]
-        checkpoint_dir = phase_train(tmp)
+        checkpoint_dir, train_data = phase_train(tmp)
         phase_train_step()
         rsa_runs.append(phase_e2e_ckpt(meta, checkpoint_dir))
+        phase_trace(meta, tmp, train_data)
+        phase_runners(tmp, train_data)
+        phase_decode(tmp)
         rsa_runs.append(phase_things(tmp))
         rsa_runs.append(phase_tvsd(tmp))
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))

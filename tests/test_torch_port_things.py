@@ -14,6 +14,7 @@ tests/test_torch_port_e2e.py does.
 """
 import pickle
 import sqlite3
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +46,7 @@ from visreps_tpu_torch.analysis import alignment as talign
 from visreps_tpu_torch.analysis import rsa as trsa
 from visreps_tpu_torch.benchmarks import fixture as tfixture
 from visreps_tpu_torch.core.config import Config, load_config
+from visreps_tpu_torch.data import loader as tloader
 from visreps_tpu_torch.data.loader import make_stimuli_loader
 from visreps_tpu_torch.data.neural import load_things_data
 from visreps_tpu_torch.data.transforms import get_transform
@@ -371,8 +373,9 @@ def _db_rows(path):
 @pytest.fixture(scope="module")
 def things_evals(tmp_path_factory, alexnet):
     """Both packages' THINGS eval on the JAX bench's fixture at a tiny
-    scale, with block-image JPEGs, the same weights, and the JAX
-    package's PIL decode (its C++ decoder resamples otherwise). The port
+    scale, with block-image JPEGs and the same weights, each decoding as
+    it does by default (the C++ decoder where it builds, the same source
+    in both packages; else PIL in both). The port
     runs through its CLI and selects on the JAX eval's SRP store; then
     once more with a store in bf16 (``acts_store=device``: the device
     concept means and the device-averaged re-extraction, on the CPU)."""
@@ -387,7 +390,6 @@ def things_evals(tmp_path_factory, alexnet):
         meta = jfixture.ensure_things_fixture()
         block_pool(sorted((tmp / "fx" / "jpeg").glob("*.jpg")), TINY["IMG_SIZE"])
         mp.chdir(meta["root"])
-        mp.setattr(jnative, "native_available", lambda: False)
         mp.setenv("VISREPS_INIT_CACHE", "0")
         mp.setattr(jevals, "load_model", lambda cfg, verbose=False: state)
         mp.setattr(jdb, "RESULTS_DB_PATH", tmp / "jax.db")
@@ -422,12 +424,15 @@ def things_evals(tmp_path_factory, alexnet):
         mp.setattr(tevals, "configure_feature_extractor", configure_on_jax_store)
         mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "torch.db")
         cli = ["--mode", "eval", "--device", "cpu", "--config", str(BASE), "--override"]
+        routes = Counter(tloader.ROUTES)
         torch_results = trun.main([*cli, *OVERRIDES])
+        routes = Counter(tloader.ROUTES) - routes
         phases = dict(tevals.LAST_PHASE_TIMES)
         mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "device.db")
         device_results = trun.main([*cli, *OVERRIDES, "acts_store=device"])
         yield {"jax": jax_results, "torch": torch_results, "device": device_results,
-               "phases": phases, "tmp": tmp, "stores": stores["torch_store"]}
+               "phases": phases, "tmp": tmp, "stores": stores["torch_store"],
+               "routes": routes, "n_ids": meta["n_images"]}
     finally:
         mp.undo()
 
@@ -442,6 +447,14 @@ class TestThingsEval:
         assert trows[0][1:6] == ("N/A", "N/A", "things-behavior", "rsa", "spearman")
         assert trows[0][10:] == jrows[0][10:] == ("untrained", -1)
         np.testing.assert_allclose(trows[0][7:10], jrows[0][7:10], atol=1e-4)
+
+    def test_decode_route_and_cache(self, things_evals):
+        """The first pass decodes every id by the default route (native
+        where both packages' decoder builds, else PIL); the re-extraction
+        is served from the decode cache."""
+        route = "native" if jnative.native_available() else "pil"
+        n = things_evals["n_ids"]
+        assert things_evals["routes"] == {route: n, "cache": n}
 
     def test_phases(self, things_evals):
         assert set(things_evals["phases"]) == {

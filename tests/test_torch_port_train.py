@@ -446,7 +446,6 @@ def test_trainer_matches_jax_trainer(tiny_imagenet, monkeypatch):
     small, so after two Adam steps the packages' trajectories part by
     ~1e-3 (the optimizers themselves are compared exactly above)."""
     monkeypatch.setenv("VISREPS_INIT_CACHE", "0")
-    monkeypatch.setattr(jloader.LabeledDataset, "native_batch", lambda self, *a, **k: None)
     jtr = JaxTrainer(_train_cfg(JaxConfig, tiny_imagenet, optimizer="sgd", learning_rate=1e-2))
     init = params_from_jax(_np_tree(jtr.state.params), _np_tree(jtr.state.batch_stats))
     jseen = []
@@ -590,7 +589,6 @@ class TestData:
 
         cfg = {"dataset": "imagenet", "pca_labels": True, "pca_n_classes": 4, "batchsize": 16,
                "num_workers": 2, "seed": 3, "data_augment": False, **imagenet}
-        monkeypatch.setattr(jloader.LabeledDataset, "native_batch", lambda self, *a, **k: None)
         tds, tl = tobj.get_obj_cls_loader(Config(cfg))
         jds, jl = jobj.get_obj_cls_loader(JaxConfig(cfg))
         assert list(tds) == list(jds) == ["train", "test"]

@@ -7,8 +7,9 @@ the port's CLI on tiny on-disk fixtures: TVSD RSA and encoding score,
 and NSD-Synthetic with and without a bootstrap.
 
 Tolerance 1e-4 for scores. As in tests/test_torch_port_e2e.py the port
-selects on the JAX eval's SRP store and images are 4 × 4 colour blocks
-decoded by PIL in both packages. Test sets hold 30 stimuli: the deep
+selects on the JAX eval's SRP store and images are 4 × 4 colour blocks,
+decoded by each package's default route (the same C++ decoder where it
+builds, else PIL). Test sets hold 30 stimuli: the deep
 taps of such images crowd their RDM entries (fc1_post at 10 TVSD test
 images: gaps of 1.5e-6, against a 2.5e-6 difference between the two
 packages' RDMs of the same taps, from f32 sums in another order), and
@@ -19,6 +20,7 @@ import json
 import pickle
 import shutil
 import sqlite3
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +45,7 @@ import visreps_tpu_torch.evals as tevals
 from visreps_tpu_torch import run as trun
 from visreps_tpu_torch.benchmarks import fixture as tfixture
 from visreps_tpu_torch.core.config import load_config
+from visreps_tpu_torch.data import loader as tloader
 from visreps_tpu_torch.models.convert import params_from_jax
 from visreps_tpu_torch.models.standard import AlexNet
 
@@ -143,8 +146,9 @@ def _select_on_jax_store(mp, stores):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Both fixtures at a tiny scale with block images, both packages'
-    model loaders on one AlexNet, the JAX package's PIL decode, and the
-    JAX eval's SRP store kept for the port."""
+    model loaders on one AlexNet, each package's default decode, and the
+    JAX eval's SRP store kept for the port; ``routes`` collects the
+    port's decode routes per eval."""
     state = jax_init_model("AlexNet", 1000, seed=1, cache=False)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, state.params))
 
@@ -168,7 +172,6 @@ def world(tmp_path_factory):
         mp.setenv("BONNER_DATASETS_HOME", tvsd["bonner_home"])
         mp.setenv("NSD_SYNTHETIC_DATA_DIR", synth["root"])
         mp.setenv("VISREPS_INIT_CACHE", "0")
-        mp.setattr(jnative, "native_available", lambda: False)
         mp.setattr(jevals, "load_model", lambda cfg, verbose=False: state)
         mp.setattr(tevals, "load_model", load_model)
         jax_get_activations = JaxExtractor.get_activations
@@ -180,7 +183,8 @@ def world(tmp_path_factory):
 
         mp.setattr(JaxExtractor, "get_activations", keep_jax_store)
         _select_on_jax_store(mp, stores)
-        yield {"mp": mp, "tmp": tmp, "stores": stores, "tvsd": tvsd, "synth": synth}
+        yield {"mp": mp, "tmp": tmp, "stores": stores, "tvsd": tvsd, "synth": synth,
+               "routes": {}}
     finally:
         mp.undo()
 
@@ -202,7 +206,9 @@ def tvsd_evals(world):
     for name, overrides in (("rsa", TVSD_RSA), ("encoding", TVSD_ENC)):
         _use_db(mp, tmp / f"jax_{name}.db", tmp / f"torch_{name}.db")
         jax_results = jevals.eval(_jax_cfg(overrides))
+        before = Counter(tloader.ROUTES)
         out[name] = (jax_results, trun.main([*CLI, *overrides]), dict(tevals.LAST_PHASE_TIMES))
+        world["routes"][f"tvsd_{name}"] = Counter(tloader.ROUTES) - before
     return out
 
 
@@ -383,7 +389,9 @@ def synth_evals(world, tvsd_evals):
         shutil.copy(seeded, tmp / name)
     _use_db(mp, tmp / "jax_syn.db", tmp / "torch_syn.db")
     jax_results = jevals.eval(jcfg)
+    before = Counter(tloader.ROUTES)
     torch_results = trun.main([*CLI, *SYN])
+    world["routes"]["nsd_synthetic"] = Counter(tloader.ROUTES) - before
     phases = dict(tevals.LAST_PHASE_TIMES)
     mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "torch_syn_noboot.db")
     no_boot = trun.main([*CLI, *SYN, "bootstrap=false"])
@@ -404,6 +412,14 @@ class TestNsdSyntheticEval:
                    _db_rows(tmp / "jax_syn.db", "nsd_synthetic"))
         assert set(phases) == {"data_load_s", "model_load_s", "phase2_extract_s",
                                "scoring_bootstrap_s"}
+
+    def test_decode_routes(self, world, tvsd_evals, synth_evals):
+        """Every TVSD JPEG and NSD-Synthetic PNG went through the default
+        route: the C++ decoder where both packages' builds, else PIL."""
+        route = "native" if jnative.native_available() else "pil"
+        routes = world["routes"]
+        assert set(routes) == {"tvsd_rsa", "tvsd_encoding", "nsd_synthetic"}
+        assert all(set(r) == {route} for r in routes.values()), routes
 
     def test_point_scores_without_bootstrap(self, synth_evals):
         """The batched average-tie point scores equal the grouped

@@ -55,6 +55,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 
@@ -331,11 +332,11 @@ def ensure_nsd_synthetic_fixture(fixture_dir: str | Path | None = None,
 
 
 def write_imagenet_fixture(root: str | Path, n_images: int, n_classes: int = 32,
-                           pca_n_classes: int = 32) -> dict:
+                           pca_n_classes: int | Sequence[int] = 32) -> dict:
     """Write ``n_images`` 256 px JPEGs over ``n_classes`` folders under
-    ``root`` (numpy RandomState(0)); returns the training config's
-    overrides for them: ``dataset_path``, ``label_file`` and an absolute
-    ``pca_labels_folder``."""
+    ``root`` (numpy RandomState(0)) and a PCA-label CSV for each of
+    ``pca_n_classes``; returns the training config's overrides for them:
+    ``dataset_path``, ``label_file`` and an absolute ``pca_labels_folder``."""
     from PIL import Image
 
     root = Path(root).resolve()
@@ -360,9 +361,9 @@ def write_imagenet_fixture(root: str | Path, n_images: int, n_classes: int = 32,
         list(pool.map(write, range(n_images)))
     label_file = root / "folder_labels.json"
     label_file.write_text(json.dumps({w: k for k, w in enumerate(wnids)}))
-    with open(pca_dir / f"n_classes_{pca_n_classes}.csv", "w") as f:
-        f.write("image,pca_label\n")
-        f.writelines(f"{name},{(i % n_classes) % pca_n_classes}\n"
-                     for i, name in enumerate(names))
+    for k in [pca_n_classes] if isinstance(pca_n_classes, int) else pca_n_classes:
+        with open(pca_dir / f"n_classes_{k}.csv", "w") as f:
+            f.write("image,pca_label\n")
+            f.writelines(f"{name},{(i % n_classes) % k}\n" for i, name in enumerate(names))
     return {"dataset_path": str(images), "label_file": str(label_file),
             "pca_labels_folder": str(pca_dir)}

@@ -11,7 +11,7 @@ normalised on the device, after a pinned, non-blocking host→device copy.
 from __future__ import annotations
 
 import time
-from typing import Iterable, Sequence
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +46,18 @@ def expand_return_nodes(tap_specs: dict, return_nodes: Sequence[str],
             points.append(spec[-1])
             alias[spec[-1]] = name
     return points, alias
+
+
+def _batches(loader: Iterable) -> Iterator:
+    """The loader's batches; each wait on it is a ``loader_wait`` span in
+    a profiler trace (``core/profiling.py``)."""
+    it = iter(loader)
+    while True:
+        with torch.profiler.record_function("loader_wait"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def _flatten_hwc(t: torch.Tensor) -> torch.Tensor:
@@ -131,10 +143,10 @@ class FeatureExtractor:
             parts: dict[str, list] = {name: [] for name in dims}
         ids: list = []
         loader_s = 0.0
-        it = iter(loader)
+        batches = _batches(loader)
         while True:
             t = time.perf_counter()
-            item = next(it, None)
+            item = next(batches, None)
             loader_s += time.perf_counter() - t
             if item is None:
                 break
@@ -176,7 +188,7 @@ class FeatureExtractor:
                                 dtype=torch.float32, device=self.device)
                  for p in points}
         all_ids: list = []
-        for x, keys in loader:
+        for x, keys in _batches(loader):
             taps = self._taps(x, points)
             for p in points:
                 _write_hwc(store[p][len(all_ids):len(all_ids) + len(keys)], taps.pop(p))
@@ -227,7 +239,7 @@ class FeatureExtractor:
         acc = torch.zeros((n_groups + 1, self.tap_dims[self.alias[point]]), dtype=torch.float32,
                           device=self.device)
         counts = np.zeros(n_groups, np.int64)
-        for x, keys in loader:
+        for x, keys in _batches(loader):
             seg = np.asarray([seg_of.get(str(k), n_groups) for k in keys], np.int64)
             np.add.at(counts, seg[seg < n_groups], 1)
             rows = _flatten_hwc(self._taps(x, (point,))[point])

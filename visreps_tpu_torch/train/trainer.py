@@ -140,7 +140,8 @@ class Trainer:
         batches = iter(self.loaders["train"])
         while True:
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            with torch.profiler.record_function("loader_wait"):  # names the wait in a trace
+                batch = next(batches, None)
             self.loader_wait_s += time.perf_counter() - t0
             if batch is None:
                 break
