@@ -127,6 +127,28 @@ non-zero without the final line:
      route, peak device memory, fixture seconds and the RDM shapes it
      asked for; the checks of e2e hold for each (results,
      rows, finite scores, S·(T + R) + U + P launches for T taps).
+ 13a. kendall — the e2e eval with compare_method=kendall (Kendall
+     selection in one batched tau-a call per subject, the per-pair
+     route's batched point scores and block-contraction bootstraps),
+     with e2e's checks and rows with compare_method kendall; then on the
+     first pair's RDMs ``bootstrap_kendall_fast`` against
+     ``kendall_tau_a`` of each gathered sub-triangle (first 20 index
+     sets, 1e-6), the eval's own scores (1e-6) and the CPU (1e-5); prints
+     the selection, point-score and bootstrap seconds.
+ 13b. dense_boot — the e2e eval with bootstrap_exact_ties=false
+     (per-pair dense-rank Spearman bootstraps): e2e's layers, point
+     scores within 1e-6 of e2e's, and bootstrap scores within 1e-6 of
+     the grouped average-tie path's on tie-free (tie-broken) copies of
+     the same RDMs; the fixture's own triangles hold many exact ties,
+     and the dense-vs-average-tie difference on them is printed.
+ 13c. pca — the e2e eval with reconstruct_from_pcs=true pca_k=1: e2e's
+     layers, the seconds of each PCA fit, and at the widest exact tap
+     ``fit_pca``'s rank-1 reconstruction (an f64 eigh of the n × n Gram)
+     against an f64 SVD's (1e-5 of the largest value), with the f32
+     SVD's beside it and the seconds of all three; then the planted
+     encoding subject (Woodbury shape) with reconstruct_pca_k=16, card
+     against CPU at highest on the alphas ≥ 1 (1e-4, same layers).
+     The launch checks of e2e hold for all three (S·(T + R) + U + P).
  14. path — the RDM shapes every RSA eval called, with their launch
      counts and the kernel's time at each: its time on the main path, Σ
      launches × ms. A shape the kernel phase did not check gets the
@@ -156,7 +178,13 @@ non-zero without the final line:
      select the same layers and agree within 1e-4 (scores and CIs); on
      the card ``high`` selects the layers ``highest`` does, with
      |Δscore| ≤ 1e-3.
- 17. kernels — the per-kernel summary line (launches: the nine RSA
+ 16a. encoding_delta — the JAX package's stage_encoding_delta on the
+     card: one subject (9,000 / 1,000 stimuli, 14 taps of d 4096, 6
+     regions of 5,000, 7,604, 2,000, 2,000, 1,500 and 900 voxels) at
+     encoding_cv_precision high and highest, without bootstrap; prints
+     the layers each selects, the largest score difference and both
+     times.
+ 17. kernels — the per-kernel summary line (launches: the twelve RSA
      evals; the encoding eval launches none).
 
 Then the card's name and power limit, and the final status line.
@@ -265,6 +293,24 @@ TRACE_TRAIN = {"epochs": 2, "steps": 10}
 # train phase's images; then eval_runner over those checkpoints (the e2e
 # eval's configuration, eval_checkpoint_at_epoch 1).
 RUNNERS = {"pca_n_classes": [2, 4], "epochs": 1}
+# kendall: bootstrap_kendall_fast against kendall_tau_a of each gathered
+# sub-triangle (both exact integer counts: equal up to the f32 rounding of
+# the tau) and against the same function on the CPU.
+KENDALL_CHECK = {"iters": 20, "tol": 1e-6, "cpu_tol": 1e-5}
+# dense_boot: average-tie point scores grouped (e2e) and batched (the
+# per-pair route), and dense against average-tie ranks on tie-free
+# triangles: the same statistic, f32 sums in other orders.
+DENSE_TOL = 1e-6
+# pca: the eval's pca_k; fit_pca's rank-1 reconstruction (f64 Gram eigh,
+# f32 out) against the same from an f64 SVD (max |Δ| / max |value|: the
+# f32 rounding of the mean, components and products); the planted
+# encoding subject's reconstruct_pca_k.
+PCA_K = 1
+PCA_TOL = 1e-5
+ENC_PCA_K = 16
+# encoding_delta: visreps_tpu/benchmarks/stages.py:296 stage_encoding_delta's shape.
+ENC_DELTA = {"n_train": 9000, "n_test": 1000, "d": 4096, "taps": 14,
+             "voxels": (5000, 7604, 2000, 2000, 1500, 900)}
 
 
 def emit(obj) -> None:
@@ -586,6 +632,15 @@ def db_rows(where: str) -> list:
                             f"WHERE {where}").fetchall()
 
 
+def db_bootstraps(where: str) -> list:
+    """The stored bootstrap distributions of the results rows ``where``
+    selects."""
+    with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
+        return [json.loads(s) for (s,) in conn.execute(
+            "SELECT scores FROM bootstrap_distributions WHERE (run_id, compare_method) IN "
+            f"(SELECT run_id, compare_method FROM results WHERE {where})")]
+
+
 def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra) -> dict:
     """The line each eval phase prints: wall and phase times, extraction
     images/s and the loader's wait, the decode routes, peak memory,
@@ -607,12 +662,15 @@ def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra)
 
 
 def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row,
-             n_taps: int = 14, batch: int = 256, extra: dict | None = None):
+             n_taps: int = 14, batch: int = 256, extra: dict | None = None,
+             options: tuple = ()):
     """The NSD RSA eval on the fixture (``drive``); checks results, db rows
     (``db_where`` selects this eval's; ``expect_row`` checks each row's
     (cfg_id, epoch)), ``n_taps`` selection scores per result, finite
-    scores and one launch per RDM. ``extra`` (filled while the eval runs)
-    joins the printed line. Returns the run (``drive``'s dict)."""
+    scores and one launch per RDM. ``options`` are overrides applied last
+    (another compare_method, bootstrap_exact_ties, reconstruct_from_pcs).
+    ``extra`` (filled while the eval runs) joins the printed line.
+    Returns the run (``drive``'s dict)."""
     subjects = list(range(E2E["n_subjects"]))
     regions = NSD_REGIONS[: E2E["n_regions"]]
     run = drive([
@@ -620,7 +678,7 @@ def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_ro
         f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
         "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
         "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
-        f"batchsize={batch}", "num_workers=8",
+        f"batchsize={batch}", "num_workers=8", *options,
     ])
     results = run["results"]
     n_pairs = len(subjects) * len(regions)
@@ -1370,6 +1428,373 @@ def phase_runners(tmp: Path, data: dict) -> dict:
     return rec
 
 
+E2E_SOURCE = ["load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none"]
+
+
+def untrained(cfg_id, epoch) -> bool:
+    return epoch == -1
+
+
+class Scoring:
+    """While in use, ``evals._score_pairs`` keeps its inputs (model RDMs,
+    neural response matrices, the layer of each pair) in ``args``, and
+    the per-pair route's point-score and bootstrap calls add their
+    seconds (each between two device synchronises) to ``seconds``."""
+
+    def __enter__(self):
+        import torch
+
+        from visreps_tpu_torch import evals
+
+        self.args, self.seconds = {}, {"point_s": 0.0, "bootstrap_s": 0.0}
+        self.saved = {k: getattr(evals, k) for k in (
+            "_score_pairs", "compute_rdm_correlation_batched", "bootstrap_rdm_correlation")}
+
+        def keep(cfg, model_rdms, neural_mats, pair_layer, n_test):
+            self.args.update(model_rdms=dict(model_rdms), neural_mats=dict(neural_mats),
+                             pair_layer=dict(pair_layer))
+            return self.saved["_score_pairs"](cfg, model_rdms, neural_mats, pair_layer, n_test)
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[key] += time.perf_counter() - t0
+                return out
+            return call
+
+        evals._score_pairs = keep
+        evals.compute_rdm_correlation_batched = timed(
+            "point_s", self.saved["compute_rdm_correlation_batched"])
+        evals.bootstrap_rdm_correlation = timed("bootstrap_s",
+                                                self.saved["bootstrap_rdm_correlation"])
+        return self
+
+    def __exit__(self, *exc):
+        from visreps_tpu_torch import evals
+
+        for k, fn in self.saved.items():
+            setattr(evals, k, fn)
+
+    def pair_rdms(self, pair):
+        """The pair's model RDM and its neural RDM (built here, after the
+        eval's launch count was read)."""
+        import torch
+
+        from visreps_tpu_torch.ops.rdm import compute_rdm
+
+        neural = torch.as_tensor(self.args["neural_mats"][pair], device="cuda")
+        return self.args["model_rdms"][self.args["pair_layer"][pair]], compute_rdm(neural)
+
+
+def same_selection(run: dict, ref: dict, what: str) -> list:
+    """Problems where ``run`` selected other layers than ``ref``."""
+    got, want = [r["layer"] for r in run["results"]], [r["layer"] for r in ref["results"]]
+    return [] if got == want else [f"{what} selected {got}, e2e {want}"]
+
+
+def phase_kendall(meta: dict, e2e_run: dict) -> dict:
+    """The e2e eval with compare_method=kendall: Kendall selection (all
+    R × 14 taus of a subject in one batched call), the per-pair route's
+    batched point scores and the block-contraction bootstrap. Checks
+    results, rows (compare_method kendall), finite scores, 1000
+    bootstraps and S·(T + R) + U + P launches; then, on the first pair's
+    RDMs and the first KENDALL_CHECK["iters"] index sets, that
+    ``bootstrap_kendall_fast`` equals ``kendall_tau_a`` of each gathered
+    sub-triangle within KENDALL_CHECK["tol"], the eval's own bootstrap
+    scores, and the same function on the CPU within KENDALL_CHECK["cpu_tol"]."""
+    import torch
+
+    from visreps_tpu_torch.ops.bootstrap import bootstrap_indices, gathered_scores
+    from visreps_tpu_torch.ops.kendall import bootstrap_kendall_fast
+
+    with Scoring() as scoring:
+        run = run_eval("kendall", meta, E2E_SOURCE,
+                       "cfg_id = 'untrained' AND compare_method = 'kendall'", untrained,
+                       options=("compare_method=kendall",))
+    with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
+        methods = {m for (m,) in conn.execute(
+            "SELECT compare_method FROM results WHERE cfg_id = 'untrained' AND "
+            "compare_method = 'kendall'")}
+    problems = [] if methods == {"kendall"} else [f"results.db methods {methods}"]
+    problems += [f"result method {r['compare_method']}" for r in run["results"]
+                 if r["compare_method"] != "kendall"]
+
+    pair = next(iter(scoring.args["pair_layer"]))
+    model, neural = scoring.pair_rdms(pair)
+    n = model.shape[0]
+    idx = bootstrap_indices(n, 1000, seed=42)[: KENDALL_CHECK["iters"]]
+    fast = bootstrap_kendall_fast(model, neural, idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = bootstrap_kendall_fast(model, neural, idx)
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    per_iter = gathered_scores(model, neural, torch.as_tensor(idx, device="cuda").long(),
+                               "kendall", chunk=KENDALL_CHECK["iters"])
+    cpu = bootstrap_kendall_fast(model.cpu(), neural.cpu(), idx)
+    own = torch.as_tensor(run["results"][0]["bootstrap_scores"][: KENDALL_CHECK["iters"]])
+    checks = {"pair": list(pair), "iters": len(idx),
+              "vs_per_iteration": (fast - per_iter).abs().max().item(),
+              "vs_eval": (fast.double().cpu() - own).abs().max().item(),
+              "vs_cpu": (fast.cpu() - cpu).abs().max().item(),
+              "tol": KENDALL_CHECK["tol"], "cpu_tol": KENDALL_CHECK["cpu_tol"],
+              "fast_s_for_iters": fast_s}
+    if not checks["vs_per_iteration"] <= KENDALL_CHECK["tol"]:
+        problems.append(f"bootstrap_kendall_fast vs kendall_tau_a {checks['vs_per_iteration']}")
+    if not checks["vs_eval"] <= KENDALL_CHECK["tol"]:
+        problems.append(f"bootstrap_kendall_fast vs the eval's scores {checks['vs_eval']}")
+    if not checks["vs_cpu"] <= KENDALL_CHECK["cpu_tol"]:
+        problems.append(f"bootstrap_kendall_fast card vs CPU {checks['vs_cpu']}")
+    phases = run["phases"]
+    emit({"phase": "kendall_check", **checks,
+          "selection_s": phases["phase1_selection_s"], **scoring.seconds,
+          "scoring_bootstrap_s": phases["scoring_bootstrap_s"], "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return run
+
+
+def tie_broken(rdm):
+    """The RDM with its upper triangle replaced by the triangle's dense
+    ranks (stable: ties in triangle order), mirrored: a tie-free RDM with
+    the same stable sorted order, so its dense-rank scores are the
+    original's and equal its average-tie scores."""
+    import torch
+
+    from visreps_tpu_torch.ops.rdm import triu_indices
+    from visreps_tpu_torch.ops.stats import rankdata_dense
+
+    iu, ju = triu_indices(rdm.shape[0], rdm.device)
+    ranks = rankdata_dense(rdm[iu, ju])
+    out = torch.zeros_like(rdm)
+    out[iu, ju] = ranks
+    out[ju, iu] = ranks
+    return out
+
+
+def phase_dense_boot(meta: dict, e2e_run: dict) -> dict:
+    """The e2e eval with bootstrap_exact_ties=false: per-pair dense-rank
+    Spearman bootstraps. Its layers must be e2e's and its point scores
+    within DENSE_TOL of e2e's (both average-tie: grouped there, batched
+    here). The fixture's RDM triangles are full of exact ties (f32 values
+    of near-equal correlations), so the dense bootstrap is held against
+    the grouped average-tie path (``bootstrap_rdm_correlation_grouped``)
+    on tie-broken copies of each pair's RDMs (``tie_broken``: the dense
+    order made strict), within DENSE_TOL; the difference tie handling
+    makes on the original RDMs is printed beside it."""
+    import numpy as np
+
+    from visreps_tpu_torch.ops.bootstrap import (
+        bootstrap_indices,
+        bootstrap_rdm_correlation_grouped,
+    )
+    from visreps_tpu_torch.ops.rdm import triangle_tie_count
+
+    where = ("cfg_id = 'untrained' AND compare_method = 'spearman' AND "
+             "reconstruct_from_pcs = 0 AND neural_dataset = 'nsd' AND subject_idx "
+             "IN ('0', '1') AND region IN ('early visual stream', 'ventral visual stream')")
+    with Scoring() as scoring:
+        run = run_eval("dense_boot", meta, E2E_SOURCE, where, untrained,
+                       options=("bootstrap_exact_ties=false",))
+    problems = same_selection(run, e2e_run, "dense_boot")
+    # bootstrap_exact_ties is no identity field: these rows replaced e2e's
+    # under the same run ids, so the stored distributions must be this run's.
+    stored = sorted(db_bootstraps(where))
+    if stored != sorted(r["bootstrap_scores"] for r in run["results"]):
+        problems.append("results.db bootstrap distributions are not this run's")
+    point_diff = max(abs(a["score"] - b["score"])
+                     for a, b in zip(run["results"], e2e_run["results"]))
+    if not point_diff <= DENSE_TOL:
+        problems.append(f"point scores differ from e2e's by {point_diff}")
+    pairs = list(scoring.args["pair_layer"])
+    rdms = {p: scoring.pair_rdms(p) for p in pairs}
+    idx = bootstrap_indices(next(iter(rdms.values()))[0].shape[0], 1000, seed=42)
+    dense = {p: np.asarray(r["bootstrap_scores"]) for p, r in zip(pairs, run["results"])}
+
+    def vs_grouped(transform) -> float:
+        grouped = bootstrap_rdm_correlation_grouped(
+            {p: transform(m) for p, (m, _) in rdms.items()},
+            {p: transform(nr) for p, (_, nr) in rdms.items()}, {p: p for p in pairs}, idx)
+        return max(float(np.abs(dense[p] - grouped[p]).max()) for p in pairs)
+
+    tie_free = vs_grouped(tie_broken)
+    if not tie_free <= DENSE_TOL:
+        problems.append(f"dense bootstrap vs grouped on tie-broken RDMs: {tie_free}")
+    emit({"phase": "dense_boot_check", "point_vs_e2e": point_diff,
+          "triangle_ties": [[triangle_tie_count(m), triangle_tie_count(nr)]
+                            for m, nr in rdms.values()],
+          "bootstrap_vs_grouped_tie_broken": tie_free,
+          "bootstrap_vs_grouped_with_ties": vs_grouped(lambda r: r), "tol": DENSE_TOL,
+          "db_bootstraps_differ_from_e2e":
+              stored != sorted(r["bootstrap_scores"] for r in e2e_run["results"]),
+          "bootstrap_s": scoring.seconds["bootstrap_s"], "point_s": scoring.seconds["point_s"],
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return run
+
+
+def reconstruction_check(x) -> dict:
+    """At one (n, d) tap: the rank-PCA_K reconstruction of ``fit_pca``
+    (an f64 eigh of the n × n Gram) and of an f32 economy SVD
+    (``torch.linalg.svd``, cuSOLVER's default route), each against the
+    same reconstruction from an f64 SVD (max |Δ| / max |value|), with
+    their seconds and the top eigenvalues' relative gap."""
+    import torch
+
+    from visreps_tpu_torch.ops.pca import fit_pca
+
+    def secs(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def from_svd(dtype):
+        xd = x.to(dtype)
+        mean = xd.mean(dim=0)
+        _, sv, vt = torch.linalg.svd(xd - mean, full_matrices=False)
+        v = vt[:PCA_K]
+        return mean + ((xd - mean) @ v.T) @ v, sv
+
+    (ref, sv), svd64_s = secs(lambda: from_svd(torch.float64))
+    rec, fit_s = secs(lambda: fit_pca(x, PCA_K).reconstruct(x))
+    (rec32, _), svd32_s = secs(lambda: from_svd(torch.float32))
+    scale = ref.abs().max().item()
+    return {"shape": list(x.shape), "fit_pca_s": fit_s, "svd_f32_s": svd32_s,
+            "svd_f64_s": svd64_s, "top_gap": (1 - (sv[1] / sv[0]) ** 2).item(),
+            "fit_pca_vs_svd_f64": (rec.double() - ref).abs().max().item() / scale,
+            "svd_f32_vs_svd_f64": (rec32.double() - ref).abs().max().item() / scale}
+
+
+def phase_pca(meta: dict, e2e_run: dict) -> dict:
+    """The e2e eval with reconstruct_from_pcs=true pca_k=PCA_K: each
+    selected layer's exact taps rebuilt from their top PCs before its
+    RDM. Its layers must be e2e's (selection does not see the PCA);
+    the seconds of every ``fit_pca`` (between device synchronises) and,
+    at the widest tap, ``reconstruction_check``. Then the planted
+    encoding subject of encoding_check (Woodbury shape) with
+    reconstruct_pca_k=ENC_PCA_K on the card and on the CPU at
+    ``highest``, on the alphas ≥ 1 (the reconstructed features have a
+    null space whose f32 roundoff decides the smaller alphas), within
+    ENC_TOL with the same layers."""
+    import torch
+
+    from visreps_tpu_torch.analysis import encoding
+    from visreps_tpu_torch.ops import pca as pca_ops
+    from visreps_tpu_torch.ops import ridge
+
+    fits, widest = [], {}
+    fit_pca = pca_ops.fit_pca
+
+    def timed_fit(x, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_pca(x, k)
+        torch.cuda.synchronize()
+        fits.append([*x.shape, time.perf_counter() - t0])
+        if x.shape[1] > widest.get("d", 0):
+            widest.update(d=x.shape[1], x=x.detach().clone())
+        return out
+
+    pca_ops.fit_pca = timed_fit
+    try:
+        run = run_eval("pca", meta, E2E_SOURCE,
+                       "cfg_id = 'untrained' AND reconstruct_from_pcs = 1", untrained,
+                       options=("reconstruct_from_pcs=true", f"pca_k={PCA_K}"))
+    finally:
+        pca_ops.fit_pca = fit_pca
+    problems = same_selection(run, e2e_run, "pca")
+    if len(fits) != len({r["layer"] for r in run["results"]}):
+        problems.append(f"{len(fits)} PCA fits for {len(run['results'])} pairs' unique layers")
+    check = reconstruction_check(widest.pop("x"))
+    if not check["fit_pca_vs_svd_f64"] <= PCA_TOL:
+        problems.append(f"fit_pca's reconstruction is {check['fit_pca_vs_svd_f64']} from the "
+                        "f64 SVD's")
+
+    protocol_alphas = ridge.default_alphas
+    determined = protocol_alphas()[protocol_alphas() >= 1]
+    data = planted_subject(*ENC_CHECK["routes"]["woodbury"])
+
+    def fit(device):
+        t0 = time.perf_counter()
+        out = encoding.compute_encoding_scores_subject(
+            *data, n_bootstrap=ENC_CHECK["n_bootstrap"], cv_precision="highest",
+            reconstruct_pca_k=ENC_PCA_K, device=device)
+        return out, time.perf_counter() - t0
+
+    ridge.default_alphas = encoding.default_alphas = lambda n=20: determined.copy()
+    try:
+        (card, card_s), (cpu, cpu_s) = fit("cuda"), fit("cpu")
+    finally:
+        ridge.default_alphas = encoding.default_alphas = protocol_alphas
+    enc = compare_encoding(card, cpu)
+    if not (enc["same_layers"] and max(enc["score"], enc["ci_low"], enc["ci_high"]) <= ENC_TOL):
+        problems.append(f"encoding with reconstruct_pca_k: card vs CPU {enc}")
+    emit({"phase": "pca_check", "pca_k": PCA_K, "fits": fits, **check, "tol": PCA_TOL,
+          "encoding": {"reconstruct_pca_k": ENC_PCA_K, "alphas": "alphas >= 1",
+                       "n_train": data[2]["regA"].shape[0], "cuda_s": card_s, "cpu_s": cpu_s,
+                       "cuda_vs_cpu": enc, "tol": ENC_TOL},
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return run
+
+
+def phase_encoding_delta() -> None:
+    """``encoding_cv_precision`` high against highest on the card (the JAX
+    package's stage_encoding_delta): one subject's
+    ``compute_encoding_scores_subject`` without bootstrap on seeded
+    device data at the stage's shape, y = tap3·W/64 + noise. Prints the
+    layers each setting selects, the largest score and selection-score
+    differences and both times; a difference is recorded, not raised."""
+    import torch
+
+    from visreps_tpu_torch.analysis import encoding
+
+    shape = ENC_DELTA
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*size):
+        return torch.randn(size, device="cuda", generator=gen)
+
+    acts_tr = {f"tap{i}": normal(shape["n_train"], shape["d"]) for i in range(shape["taps"])}
+    acts_te = {f"tap{i}": normal(shape["n_test"], shape["d"]) for i in range(shape["taps"])}
+    y_tr, y_te = {}, {}
+    for r, v in enumerate(shape["voxels"]):
+        w = normal(shape["d"], v) / 64.0
+        y_tr[str(r)] = acts_tr["tap3"] @ w + normal(shape["n_train"], v)
+        y_te[str(r)] = acts_te["tap3"] @ w + normal(shape["n_test"], v)
+    del w
+    torch.cuda.synchronize()
+    out = {}
+    for precision in ("high", "highest"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = encoding.compute_encoding_scores_subject(
+            acts_tr, acts_te, y_tr, y_te, bootstrap=False, cv_precision=precision,
+            device="cuda")
+        torch.cuda.synchronize()
+        out[precision] = (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9)
+    (high, high_s, high_gb), (highest, highest_s, highest_gb) = out["high"], out["highest"]
+    delta = compare_encoding(high, highest)
+    emit({"phase": "encoding_delta", "n_train": shape["n_train"], "n_test": shape["n_test"],
+          "d": shape["d"], "taps": shape["taps"], "voxels": list(shape["voxels"]),
+          "layers_high": {r: high[r][0]["layer"] for r in high},
+          "layers_highest": {r: highest[r][0]["layer"] for r in highest},
+          "same_layers": delta["same_layers"], "score_delta": delta["score"],
+          "selection_delta": delta["selection"],
+          "scores_high": {r: high[r][0]["score"] for r in high},
+          "scores_highest": {r: highest[r][0]["score"] for r in highest},
+          "high_s": high_s, "highest_s": highest_s, "peak_mem_gb": max(high_gb, highest_gb)})
+    del acts_tr, acts_te, y_tr, y_te
+    torch.cuda.empty_cache()
+
+
 def phase_path(shapes: Counter, records: list) -> float:
     """The kernel's time on the main path: at each RDM shape the evals
     asked for, its launches there times its ms per call. A shape the
@@ -1643,11 +2068,13 @@ def planted_subject(n_train: int, d: int, seed: int = 0):
 
 
 def compare_encoding(got: dict, ref: dict) -> dict:
-    """Per-region layers and the largest |difference| of scores, CIs and
-    selection scores between two compute_encoding_scores_subject outputs."""
+    """Per-region layers and the largest |difference| of scores, CIs (None
+    without a bootstrap) and selection scores between two
+    compute_encoding_scores_subject outputs."""
     out = {"same_layers": all(got[r][0]["layer"] == ref[r][0]["layer"] for r in ref)}
     for key in ("score", "ci_low", "ci_high"):
-        out[key] = max(abs(got[r][0][key] - ref[r][0][key]) for r in ref)
+        diffs = [abs(got[r][0][key] - ref[r][0][key]) for r in ref if ref[r][0][key] is not None]
+        out[key] = max(diffs, default=None)
     out["selection"] = max(abs(g["score"] - e["score"]) for r in ref for g, e in zip(
         got[r][0]["layer_selection_scores"], ref[r][0]["layer_selection_scores"]))
     out["layers"] = [got[r][0]["layer"] for r in ref]
@@ -1730,11 +2157,14 @@ def main() -> int:
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
         rsa_runs.append(phase_ref_ckpt(meta, tmp))
         rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in PRETRAINED)
+        rsa_runs.extend(phase(meta, rsa_runs[0])
+                        for phase in (phase_kendall, phase_dense_boot, phase_pca))
         phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_encoding_check()
+    phase_encoding_delta()
     launches = sum(r["launches"] for r in rsa_runs)
 
     main_shape = records[0]  # (1000, 4096) f32: phase-1 selection, most launches

@@ -78,10 +78,13 @@ def _block_images(path):
 
 
 @pytest.fixture(scope="module")
-def both_evals(tmp_path_factory):
+def nsd_world(tmp_path_factory):
     """Both packages' eval on one tiny on-disk fixture (the JAX bench's
     HDF5 fixture at the scale of tests/test_bench_stages.py), with the
-    same weights and SRP matrices.
+    same weights and SRP matrices: ``run(overrides, name)`` runs the JAX
+    eval and then the port's of ``_cfg`` with ``overrides``, each into
+    its own results.db (``{jax,torch}_{name}.db``; "base" → jax.db and
+    torch.db).
 
     The port extracts its own SRP store, which is kept for
     TestEvalParity.test_srp_store, and then selects on the JAX eval's
@@ -109,8 +112,6 @@ def both_evals(tmp_path_factory):
         state = jax_init_model("AlexNet", 1000, seed=1, cache=False)
         mp.setattr(jevals, "load_model", lambda cfg, verbose=False: state)
         mp.setattr(jneural, "NSD_STIMULI_HDF5", meta["hdf5"])
-        mp.setattr(jdb, "RESULTS_DB_PATH", tmp / "jax.db")
-        mp.setattr(jevals, "RESULTS_DB_PATH", tmp / "jax.db")
         jax_get_activations = JaxExtractor.get_activations
 
         def keep_jax_store(self, *args, **kwargs):
@@ -119,8 +120,6 @@ def both_evals(tmp_path_factory):
             return acts, ids
 
         mp.setattr(JaxExtractor, "get_activations", keep_jax_store)
-        jax_results = jevals.eval(_cfg(JaxConfig))
-
         params = params_from_jax(jax.tree_util.tree_map(np.asarray, state.params))
 
         def load_model(cfg, device=None):
@@ -128,11 +127,11 @@ def both_evals(tmp_path_factory):
             model.load_state_dict(params)
             return model.to(device).eval()
 
-        jax_srp = JaxSRP(k=SRP_K, seed=0)
         configure = tevals.configure_feature_extractor
 
         def configure_with_jax_srp(cfg, model, device=None, verbose=False):
             ext = configure(cfg, model, device=device, verbose=verbose)
+            jax_srp = JaxSRP(k=cfg.srp_k, seed=0)
             srp_from_jax(ext.srp, {
                 d: tuple(np.asarray(c, np.float32) for c in jax_srp.matrix_chunks(d))
                 for d in set(ext.tap_dims.values())})
@@ -152,11 +151,24 @@ def both_evals(tmp_path_factory):
         mp.setattr(tevals, "load_model", load_model)
         mp.setattr(tevals, "configure_feature_extractor", configure_with_jax_srp)
         mp.setenv("NSD_STIMULI_HDF5", meta["hdf5"])  # the port reads it per call
-        mp.setattr(tdb, "RESULTS_DB_PATH", tmp / "torch.db")
-        torch_results = tevals.eval(_cfg(Config), device="cpu")
-        yield jax_results, torch_results, tmp, stores
+
+        def run(overrides: dict, name: str = "base"):
+            suffix = "" if name == "base" else f"_{name}"
+            mp.setattr(jdb, "RESULTS_DB_PATH", tmp / f"jax{suffix}.db")
+            mp.setattr(jevals, "RESULTS_DB_PATH", tmp / f"jax{suffix}.db")
+            mp.setattr(tdb, "RESULTS_DB_PATH", tmp / f"torch{suffix}.db")
+            jax_results = jevals.eval(_cfg(JaxConfig).merge(overrides))
+            return jax_results, tevals.eval(_cfg(Config).merge(overrides), device="cpu")
+
+        yield {"run": run, "tmp": tmp, "stores": stores, "mp": mp}
     finally:
         mp.undo()
+
+
+@pytest.fixture(scope="module")
+def both_evals(nsd_world):
+    jax_results, torch_results = nsd_world["run"]({})
+    return jax_results, torch_results, nsd_world["tmp"], dict(nsd_world["stores"])
 
 
 def _top_two_gap(result) -> float:
@@ -293,10 +305,61 @@ class TestStandalone:
         ({"reconstruct_from_pcs": True}, "Analysis remainder"),
         ({"model_name": "CLIPVisionTower"}, "Remaining models"),
     ])
-    def test_out_of_slice_configs_raise(self, override, item):
-        cfg = _cfg(Config).merge(override)
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            tevals.eval(cfg, device="cpu")
+    def test_out_of_slice_configs_raise(self, override, item, nsd_world, monkeypatch):
+        """Models outside the port raise NotImplementedError naming their
+        ROADMAP.md item. The configurations that raised "Pearson/Kendall
+        scoring" or "Analysis remainder" before those items were ported now
+        run and agree with the JAX package (selection, point and bootstrap
+        scores at 1e-4): the NSD evals whole on the tiny fixture (the
+        encoding eval at srp_k 8, which keeps ridge's Woodbury route, on
+        the alphas ≥ 1, since its rank-1 reconstructed features leave a
+        null space whose roundoff decides smaller alphas); THINGS' setting
+        through ``compute_traintest_alignment`` on planted splits."""
+        if item == "Remaining models":
+            with pytest.raises(NotImplementedError, match=re.escape(item)):
+                tevals.eval(_cfg(Config).merge(override), device="cpu")
+            return
+        tevals._check_slice(_cfg(Config).merge(override))
+        if override.get("neural_dataset") == "things-behavior":
+            from visreps_tpu.analysis import alignment as jalign
+            from visreps_tpu_torch.analysis import alignment as talign
+
+            rng = np.random.RandomState(6)
+            acts = {f"L{i}": rng.randn(50, 24).astype(np.float32) for i in range(3)}
+            neural = rng.randn(50, 6).astype(np.float32) + acts["L1"][:, :6]
+            cfg = {**override, "analysis": "rsa", "n_bootstrap": 8}
+            split = [(cls({l: a[sl] for l, a in acts.items()}, neural[sl]))
+                     for cls in (talign.AlignmentData, jalign.AlignmentData)
+                     for sl in (slice(0, 30), slice(30, 50))]
+            got = talign.compute_traintest_alignment(Config(cfg), *split[:2], device="cpu")
+            ref = jalign.compute_traintest_alignment(JaxConfig(cfg), *split[2:])
+            pairs = [(got[0], ref[0])]
+        else:
+            if override.get("analysis") == "encoding_score":
+                override = {**override, "srp_k": 8}
+                from visreps_tpu.analysis import encoding as jenc
+                from visreps_tpu.ops import ridge as jridge
+                from visreps_tpu_torch.analysis import encoding as tenc
+                from visreps_tpu_torch.ops import ridge as tridge
+
+                alphas = jridge.default_alphas()
+                for mod in (jridge, tridge, jenc, tenc):
+                    monkeypatch.setattr(mod, "default_alphas",
+                                        lambda n=20: alphas[alphas >= 1].copy())
+            ref, got = nsd_world["run"](override, name=re.sub(r"\W", "", json.dumps(override)))
+            assert len(got) == len(ref) == 4
+            pairs = list(zip(got, ref))
+        for t, j in pairs:
+            assert t["compare_method"] == j["compare_method"] and t["analysis"] == j["analysis"]
+            ts = [e["score"] for e in t["layer_selection_scores"]]
+            np.testing.assert_allclose(ts, [e["score"] for e in j["layer_selection_scores"]],
+                                       atol=1e-4)
+            if t["layer"] != j["layer"]:
+                assert _top_two_gap(j) <= 1e-4
+                continue
+            assert t["score"] == pytest.approx(j["score"], abs=1e-4)
+            assert len(t["bootstrap_scores"]) == len(j["bootstrap_scores"]) == 8
+            np.testing.assert_allclose(t["bootstrap_scores"], j["bootstrap_scores"], atol=1e-4)
 
     def test_cli_reads_the_shared_configs(self):
         cfg = trun.validate_config(load_config(

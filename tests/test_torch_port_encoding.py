@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import visreps_tpu.core.db as jdb
 import visreps_tpu.data.neural as jneural
 import visreps_tpu.evals as jevals
+from visreps_tpu.analysis import alignment as jalign
 from visreps_tpu.analysis import encoding as jenc
 from visreps_tpu.analysis.alignment import AlignmentData as JaxAlignmentData
 from visreps_tpu.benchmarks import fixture as jfixture
@@ -365,28 +366,41 @@ class TestEncodingFunctions:
         _same_result(t["r"][0], j["r"][0], 0)
         assert t["r"][0]["score"] > 0.95
 
-    def test_out_of_slice_and_invalid_inputs_raise(self):
+    def test_out_of_slice_and_invalid_inputs_raise(self, monkeypatch):
+        """``reconstruct_pca_k`` (train-fitted PCA reconstruction of the
+        selected layer) and the RSA branch's dense-rank bootstrap
+        (``bootstrap_exact_ties=false``) agree with the JAX package at
+        1e-4, on the alphas ≥ 1: the reconstructed rank-5 features leave a
+        null space whose roundoff decides the smaller alphas (see the module
+        docstring). Invalid inputs raise."""
+        _determined_alphas(monkeypatch)
         tr, te, y_tr, y_te = _subject(14, 40, 20, 8)
         train, test = AlignmentData(tr, y_tr["regA"]), AlignmentData(te, y_te["regA"])
-        for call in (
-                lambda: tenc.compute_encoding_score(train, test, reconstruct_pca_k=5,
-                                                    device="cpu"),
-                lambda: tenc.compute_encoding_scores_subject(tr, te, y_tr, y_te,
-                                                             reconstruct_pca_k=5, device="cpu"),
-                lambda: tenc.compute_encoding_scores_subjects({0: (tr, te, y_tr, y_te)},
-                                                              reconstruct_pca_k=5, device="cpu"),
-                lambda: compute_traintest_alignment(
-                    Config({"analysis": "encoding_score", "reconstruct_from_pcs": True}),
-                    train, test, device="cpu")):
-            with pytest.raises(NotImplementedError, match="Analysis remainder"):
-                call()
+        jtrain, jtest = JaxAlignmentData(tr, y_tr["regA"]), JaxAlignmentData(te, y_te["regA"])
+        kw = {"reconstruct_pca_k": 5, "n_bootstrap": 16}
+        _same_result(tenc.compute_encoding_score(train, test, device="cpu", **kw)[0],
+                     jenc.compute_encoding_score(jtrain, jtest, **kw)[0], 16)
+        got = tenc.compute_encoding_scores_subject(tr, te, y_tr, y_te, device="cpu", **kw)
+        ref = jenc.compute_encoding_scores_subject(tr, te, y_tr, y_te, **kw)
+        many = tenc.compute_encoding_scores_subjects({0: (tr, te, y_tr, y_te)}, device="cpu",
+                                                     **kw)
+        for r in ("regA", "regB"):
+            _same_result(got[r][0], ref[r][0], 16)
+            assert many[0][r][0]["score"] == pytest.approx(got[r][0]["score"], abs=1e-6)
+        cfg = {"analysis": "encoding_score", "reconstruct_from_pcs": True, "pca_k": 5,
+               "n_bootstrap": 16}
+        _same_result(compute_traintest_alignment(Config(cfg), train, test, device="cpu")[0],
+                     jalign.compute_traintest_alignment(JaxConfig(cfg), jtrain, jtest)[0], 16)
         with pytest.raises(ValueError, match="things-behavior"):
             compute_traintest_alignment(Config({"analysis": "encoding_score",
                                                 "neural_dataset": "things-behavior"}),
                                         train, test, device="cpu")
-        with pytest.raises(NotImplementedError, match="Pearson/Kendall scoring"):
-            compute_traintest_alignment(Config({"analysis": "rsa", "bootstrap_exact_ties": False}),
-                                        train, test, device="cpu")
+        cfg = {"analysis": "rsa", "bootstrap_exact_ties": False, "n_bootstrap": 16}
+        dense = compute_traintest_alignment(Config(cfg), train, test, device="cpu")[0]
+        jdense = jalign.compute_traintest_alignment(JaxConfig(cfg), jtrain, jtest)[0]
+        assert dense["layer"] == jdense["layer"] and dense["bootstrap_exact_ties"] is False
+        assert dense["score"] == pytest.approx(jdense["score"], abs=RTOL)
+        np.testing.assert_allclose(dense["bootstrap_scores"], jdense["bootstrap_scores"], atol=RTOL)
         rsa = compute_traintest_alignment(Config({"analysis": "rsa", "bootstrap": False}),
                                           train, test, device="cpu")
         assert len(rsa) == 1 and rsa[0]["layer"] in tr and rsa[0]["analysis"] == "rsa"

@@ -248,9 +248,26 @@ class TestScoring:
         np.testing.assert_allclose(got_b.numpy(), np.asarray(ref_b), atol=1e-5)
 
     def test_kendall_and_bad_shapes_raise(self):
+        """Kendall tau-a of tied RDMs (single and batched) agrees with the
+        JAX package's within 1e-6 (the port counts exactly; JAX sums its
+        counts in f32); ``compute_rdm`` still refuses Kendall; bad shapes
+        raise."""
+        rng = np.random.RandomState(5)
+        rdms = [np.array(jrdm.compute_rdm(_sign_rows(rng, 20))) for _ in range(4)]
+        got = trdm.compute_rdm_correlation(torch.from_numpy(rdms[0]), torch.from_numpy(rdms[1]),
+                                           "kendall")
+        ref = jrdm.compute_rdm_correlation(jnp.asarray(rdms[0]), jnp.asarray(rdms[1]), "kendall")
+        assert got == pytest.approx(float(ref), abs=1e-6)
+        a, b = np.stack(rdms[:2]), np.stack(rdms[2:])
+        got_b = trdm.compute_rdm_correlation_batched(torch.from_numpy(a), torch.from_numpy(b),
+                                                     "kendall")
+        ref_b = jrdm.compute_rdm_correlation_batched(jnp.asarray(a), jnp.asarray(b), "kendall")
+        np.testing.assert_allclose(got_b.numpy(), np.asarray(ref_b), atol=1e-6)
         r = torch.zeros((4, 4))
-        with pytest.raises(NotImplementedError, match="Pearson/Kendall scoring"):
-            trdm.compute_rdm_correlation(r, r, "kendall")
+        with pytest.raises(ValueError, match="Pearson"):
+            trdm.compute_rdm(r, "kendall")
+        with pytest.raises(ValueError):
+            trdm.compute_rdm_correlation(r, r, "cosine")
         with pytest.raises(ValueError):
             trdm.compute_rdm_correlation(r, torch.zeros((3, 3)))
         assert np.isnan(trdm.compute_rdm_correlation(torch.zeros((1, 1)), torch.zeros((1, 1))))
@@ -274,7 +291,7 @@ class TestComputeRsa:
         sel, ev = _splits(np.random.RandomState(6))
         cfg = {"compare_method": "spearman"}
         kw = dict(n_select=n_select, bootstrap=bootstrap, n_bootstrap=N_BOOT)
-        got = trsa.compute_rsa(cfg, sel, ev, **kw)[0]
+        got = trsa.compute_rsa(cfg, sel, ev, **kw, device="cpu")[0]
         ref = jrsa.compute_rsa(cfg, sel, ev, **kw)[0]
         assert got["layer"] == ref["layer"] == "L1"
         np.testing.assert_allclose([e["score"] for e in got["layer_selection_scores"]],
@@ -294,12 +311,16 @@ class TestComputeRsa:
         """The n_select draw moves the bootstrap's draws: a fresh
         bootstrap_indices(seed=42) would give other scores."""
         sel, ev = _splits(np.random.RandomState(6))
-        kw = dict(bootstrap=True, n_bootstrap=N_BOOT)
+        kw = dict(bootstrap=True, n_bootstrap=N_BOOT, device="cpu")
         drawn = trsa.compute_rsa({}, sel, ev, n_select=18, **kw)[0]["bootstrap_scores"]
         fresh = trsa.compute_rsa({}, sel, ev, n_select=None, **kw)[0]["bootstrap_scores"]
         assert not np.allclose(drawn, fresh)
 
     def test_re_extraction_and_unported_bootstraps(self):
+        """The re-extraction hook scores the re-extracted activations; the
+        unfused route (the dense-rank Spearman bootstrap, Pearson and
+        Kendall, each with and without an n_select draw) agrees with the
+        JAX package within 1e-5."""
         sel, ev = _splits(np.random.RandomState(6))
         seen = []
 
@@ -309,10 +330,24 @@ class TestComputeRsa:
 
         got = trsa.compute_rsa({}, sel, ev, bootstrap=False, re_extract_fn=re_extract)[0]
         assert seen == [("L1", ev.stimulus_ids)] and "re_extract_s" in trsa.LAST_RSA_TIMES
-        assert got["score"] == trsa.compute_rsa({}, sel, ev, bootstrap=False)[0]["score"]
-        for cfg in ({"bootstrap_exact_ties": False}, {"compare_method": "pearson"}):
-            with pytest.raises(NotImplementedError, match="Pearson/Kendall scoring"):
-                trsa.compute_rsa(cfg, sel, ev, bootstrap=True)
+        assert got["score"] == trsa.compute_rsa({}, sel, ev, bootstrap=False,
+                                                device="cpu")[0]["score"]
+        for cfg in ({"bootstrap_exact_ties": False}, {"compare_method": "pearson"},
+                    {"compare_method": "kendall"}):
+            for n_select in (None, 18):
+                kw = dict(n_select=n_select, bootstrap=True, n_bootstrap=N_BOOT)
+                got = trsa.compute_rsa(cfg, sel, ev, **kw, device="cpu")[0]
+                ref = jrsa.compute_rsa(cfg, sel, ev, **kw)[0]
+                assert set(got) == set(ref) and got["layer"] == ref["layer"] == "L1"
+                assert got["compare_method"] == ref["compare_method"]
+                assert got["bootstrap_exact_ties"] is ref["bootstrap_exact_ties"] is False
+                np.testing.assert_allclose(
+                    [e["score"] for e in got["layer_selection_scores"]],
+                    [e["score"] for e in ref["layer_selection_scores"]], atol=1e-5)
+                assert got["score"] == pytest.approx(ref["score"], abs=1e-5)
+                np.testing.assert_allclose(got["bootstrap_scores"], ref["bootstrap_scores"],
+                                           atol=1e-5)
+                assert "bootstrap_s" in trsa.LAST_RSA_TIMES
 
 
 # ── fixture and validator ──

@@ -9,8 +9,9 @@ test predictions (no refit). One ``RandomState(seed)`` draws the
 permutation and then the bootstrap index sets, as the reference does.
 
 The ridge work is ``ops/ridge.py``; every tensor lives on ``device``.
-``reconstruct_pca_k`` (train-fitted PCA reconstruction of the selected
-layer) needs ``ops/pca.py``, which is not ported yet.
+With ``reconstruct_pca_k`` the selected layer's train and test rows are
+rebuilt from the top-k PCs of its train rows before the refit
+(``ops/pca.py``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import numpy as np
 import torch
 
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.bootstrap import percentile_ci
+from visreps_tpu_torch.ops.pca import fit_pca
 from visreps_tpu_torch.ops.ridge import (
     correlation_score,
     default_alphas,
-    input_device,
     ridge_cv,
     ridge_cv_refit_predict,
     ridge_cv_refit_predict_grouped,
@@ -39,10 +41,13 @@ from visreps_tpu_torch.ops.znorm import znorm, znorm_fit
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
-def _no_pca(reconstruct_pca_k) -> None:
-    if reconstruct_pca_k is not None:
-        raise NotImplementedError(
-            "reconstruct_pca_k is not ported yet (ROADMAP.md, 'Analysis remainder')")
+def _reconstructed(x_tr: torch.Tensor, x_te: torch.Tensor, k: int | None):
+    """Train and test rows rebuilt from the top-k PCs of the train rows
+    (unchanged without ``k``)."""
+    if k is None:
+        return x_tr, x_te
+    pca = fit_pca(x_tr, min(k, x_tr.shape[1]))
+    return pca.reconstruct(x_tr), pca.reconstruct(x_te)
 
 
 def _flatten_f32(acts: Dict, device) -> Dict[str, torch.Tensor]:
@@ -87,7 +92,6 @@ def compute_encoding_score(selection, evaluation, bootstrap: bool = True,
     """Select the best layer on train (80/20 fit/val), refit on the full
     train split, score test. Single-element list, the reference's
     contract; the inputs are not mutated."""
-    _no_pca(reconstruct_pca_k)
     device = input_device(next(iter(selection.activations.values())), device)
     rng = np.random.RandomState(seed)
     alphas = default_alphas()
@@ -133,9 +137,16 @@ def compute_encoding_score(selection, evaluation, bootstrap: bool = True,
                f"{train_acts[best_layer].shape[1]} features, {n_voxels} voxels)",
                style="highlight")
 
+    # ── 1b. Optional train-fitted PCA reconstruction of the selected layer ──
+    if reconstruct_pca_k is not None:
+        rprint(f"  Reconstructing {best_layer} from {reconstruct_pca_k} PCs (train-fitted)",
+               style="info")
+    x_train_best, x_test_best = _reconstructed(train_acts[best_layer], test_acts[best_layer],
+                                               reconstruct_pca_k)
+
     # ── 2. Refit on the FULL train split (full-train z-norm statistics) ──
-    x_train_normed, x_mean, x_std = znorm_fit(train_acts[best_layer])
-    x_test_normed = znorm(test_acts[best_layer], x_mean, x_std)
+    x_train_normed, x_mean, x_std = znorm_fit(x_train_best)
+    x_test_normed = znorm(x_test_best, x_mean, x_std)
     y_train_normed, ym, ys = znorm_fit(y_train_raw)
     y_test_normed = znorm(y_test_raw, ym, ys)
     pred_test, point_estimate = _fit_and_score(
@@ -188,7 +199,6 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
     The seeded split and bootstrap draws are those of a per-pair
     ``RandomState(seed)``. Returns {region: [result]}.
     """
-    _no_pca(reconstruct_pca_k)
     regions = list(y_train)
     device = input_device(next(iter(acts_train.values())), device)
     train_f32 = _flatten_f32(acts_train, device)
@@ -241,7 +251,8 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
     if bootstrap:
         boot_idx = torch.as_tensor(_boot_indices(rng, n_test, n_bootstrap), dtype=torch.long,
                                    device=device)
-    jobs = _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best)
+    jobs = _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best,
+                             reconstruct_pca_k)
     if _defer:
         return {"jobs": jobs, "selection": per_region_selection, "best": per_region_best,
                 "boot_idx": boot_idx, "col_slices": col_slices, "bootstrap": bootstrap}
@@ -254,18 +265,22 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
                                      col_slices)
 
 
-def _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best):
-    """One refit job per unique selected layer. Jobs hold REFERENCES to
-    the per-region target blocks (concatenated only at refit time), so
-    deferring refits across subjects never duplicates the targets."""
+def _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best,
+                      reconstruct_pca_k=None):
+    """One refit job per unique selected layer (its rows PCA-reconstructed
+    with ``reconstruct_pca_k``). Jobs hold REFERENCES to the per-region
+    target blocks (concatenated only at refit time), so deferring refits
+    across subjects never duplicates the targets."""
     by_layer: Dict[str, list] = {}
     for r in regions:
         by_layer.setdefault(per_region_best[r], []).append(r)
-    return [{"layer": layer, "members": members,
-             "x_tr": train_f32[layer], "x_te": test_f32[layer],
-             "y_tr_parts": [y_train[r] for r in members],
-             "y_te_parts": [y_test[r] for r in members]}
-            for layer, members in by_layer.items()]
+    jobs = []
+    for layer, members in by_layer.items():
+        x_tr, x_te = _reconstructed(train_f32[layer], test_f32[layer], reconstruct_pca_k)
+        jobs.append({"layer": layer, "members": members, "x_tr": x_tr, "x_te": x_te,
+                     "y_tr_parts": [y_train[r] for r in members],
+                     "y_te_parts": [y_test[r] for r in members]})
+    return jobs
 
 
 def _job_targets(job):
@@ -322,7 +337,6 @@ def compute_encoding_scores_subjects(subject_inputs: Dict, bootstrap: bool = Tru
     per-region assembly. Numbers equal per-subject calls'.
     Returns {subject: {region: [result]}}.
     """
-    _no_pca(reconstruct_pca_k)
     LAST_PHASE_TIMES.clear()
     t0 = time.perf_counter()
     deferred = {}
@@ -330,7 +344,8 @@ def compute_encoding_scores_subjects(subject_inputs: Dict, bootstrap: bool = Tru
         rprint(f"\n  -- Subject: {subj} (all regions batched) --", style="info")
         deferred[subj] = compute_encoding_scores_subject(
             a_tr, a_te, y_tr, y_te, bootstrap=bootstrap, n_bootstrap=n_bootstrap, seed=seed,
-            verbose=verbose, cv_precision=cv_precision, device=device, _defer=True)
+            verbose=verbose, reconstruct_pca_k=reconstruct_pca_k, cv_precision=cv_precision,
+            device=device, _defer=True)
     LAST_PHASE_TIMES["selection_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

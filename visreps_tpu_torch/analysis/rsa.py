@@ -6,14 +6,15 @@ stimuli, different voxels), so the L model RDMs and their rank
 transforms are computed once per subject and scored against all R
 neural RDMs. Spearman uses dense ranks and the Σd² form by default, or
 scipy's average-tie ranks with ``exact_ties``; Pearson correlates the
-raw triangles.
+raw triangles; Kendall runs all R × L tau-a in one batched call.
 
 ``compute_rsa`` is the per-pair protocol the THINGS eval runs: layer
 selection on the selection split (optionally a seeded ``n_select``
 subsample), then the selected layer's test RDM (optionally re-extracted
-at full resolution), its average-tie Spearman point score and bootstrap
-CIs. ``concept_average_exact`` averages per-image activations per
-concept on the host.
+at full resolution), its point score and bootstrap CIs. Spearman with a
+bootstrap runs fused and average-tie exact; every other setting takes
+the unfused route of the JAX package. ``concept_average_exact`` averages
+per-image activations per concept on the host.
 """
 from __future__ import annotations
 
@@ -25,17 +26,25 @@ import torch
 
 from visreps_tpu_torch.analysis.alignment import take_rows
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.bootstrap import (
     bootstrap_indices,
+    bootstrap_rdm_correlation,
     percentile_ci,
     single_pair_scoring,
 )
 from visreps_tpu_torch.ops.rdm import compute_rdm, compute_rdm_correlation, upper_triangle
-from visreps_tpu_torch.ops.stats import pearson_corr, rankdata_average, rankdata_dense
+from visreps_tpu_torch.ops.stats import (
+    kendall_tau_a,
+    pearson_corr,
+    rankdata_average,
+    rankdata_dense,
+)
 
 #: Wall-clock seconds of the last compute_rsa call's steps: selection_s,
 #: re_extract_s (with a re-extraction) and point_score_s (with the
-#: bootstrap where it ran fused, and then fused = 1.0).
+#: bootstrap where it ran fused, and then fused = 1.0; else bootstrap_s
+#: follows).
 LAST_RSA_TIMES: Dict[str, float] = {}
 
 
@@ -51,10 +60,11 @@ def select_scores_multipair(layer_acts: Sequence[torch.Tensor], neural_rdms: tor
         yc = tri_n - tri_n.mean(dim=1, keepdim=True)
         denom = torch.sqrt((yc * yc).sum(1)[:, None] * (xc * xc).sum(1)[None, :])
         return (yc @ xc.T) / denom
+    if method == "kendall":
+        R, L = tri_n.shape[0], tri.shape[0]
+        return kendall_tau_a(tri[None].expand(R, -1, -1), tri_n[:, None].expand(-1, L, -1))
     if method != "spearman":
-        raise NotImplementedError(
-            f"compare_method={method!r} selection is not ported yet "
-            "(ROADMAP.md, 'Pearson/Kendall scoring')")
+        raise ValueError("method must be 'pearson', 'spearman' or 'kendall'")
     if exact_ties:
         rx = rankdata_average(tri)
         ry = rankdata_average(tri_n)
@@ -98,23 +108,20 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
     the selected layer's test activations (full resolution); without it
     the evaluation split's own activations are scored. Spearman with a
     bootstrap runs fused (``single_pair_scoring``: both RDMs, the point
-    score and the bootstrap, average-tie exact); otherwise the point
-    score is ``compute_rdm_correlation`` of the two RDMs, and a bootstrap
-    of another method or of dense ranks (``bootstrap_exact_ties=false``)
-    raises: it is not ported. Scoring runs on
-    ``device`` (default: where the test activations lie). Returns a
-    one-element list: layer, compare_method, score, ci_low, ci_high,
-    analysis, layer_selection_scores and, with a bootstrap,
+    score and the bootstrap, average-tie exact) unless
+    ``bootstrap_exact_ties`` is false; otherwise the point score is
+    ``compute_rdm_correlation`` of the two RDMs and the bootstrap
+    ``bootstrap_rdm_correlation`` (for Spearman then by dense ranks: under
+    "auto" or true it runs fused, so the JAX package's tie detection on
+    this route is not needed). Scoring runs on ``device`` (default: where
+    the test activations lie; arrays need ``device``).
+    Returns a one-element list: layer, compare_method, score, ci_low,
+    ci_high, analysis, layer_selection_scores and, with a bootstrap,
     bootstrap_scores and bootstrap_exact_ties.
     """
     method = cfg.get("compare_method", "spearman").lower()
     fused = (bootstrap and method == "spearman"
              and cfg.get("bootstrap_exact_ties", "auto") is not False)
-    if bootstrap and not fused:
-        raise NotImplementedError(
-            f"the compare_method={method} bootstrap with bootstrap_exact_ties="
-            f"{cfg.get('bootstrap_exact_ties', 'auto')} is not ported yet "
-            "(ROADMAP.md, 'Pearson/Kendall scoring')")
     rng = np.random.RandomState(seed)
     n_train = selection.neural.shape[0]
     n_test = evaluation.neural.shape[0]
@@ -150,21 +157,30 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
         t = time.perf_counter()
     else:
         test_acts = evaluation.activations[best_layer]
-    if device is None:
-        device = test_acts.device if isinstance(test_acts, torch.Tensor) else "cpu"
+    device = input_device(test_acts, device)
     test_acts = torch.as_tensor(test_acts).to(device)
     test_acts = test_acts.reshape(test_acts.shape[0], -1)
 
     ci_low = ci_high = boot = None
+    boot_exact = False
     if fused:
         boot, point = single_pair_scoring(test_acts, evaluation.neural,
                                           bootstrap_indices(n_test, n_bootstrap, seed=rng),
                                           device=device)
+        boot_exact = True
         LAST_RSA_TIMES["fused"] = 1.0
+        LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
     else:
         neural_rdm = compute_rdm(torch.as_tensor(evaluation.neural).to(device, torch.float32))
-        point = compute_rdm_correlation(compute_rdm(test_acts), neural_rdm, correlation=method)
-    LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
+        model_rdm = compute_rdm(test_acts)
+        point = compute_rdm_correlation(model_rdm, neural_rdm, correlation=method)
+        LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        if bootstrap:
+            boot = bootstrap_rdm_correlation(
+                model_rdm, neural_rdm, method=method,
+                indices=bootstrap_indices(n_test, n_bootstrap, seed=rng))
+        LAST_RSA_TIMES["bootstrap_s"] = time.perf_counter() - t
 
     msg = f"  {method.capitalize():<10}| {best_layer} = {point:.4f}"
     if boot is not None:
@@ -182,7 +198,7 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
     }
     if boot is not None:
         result["bootstrap_scores"] = boot.tolist()
-        result["bootstrap_exact_ties"] = True  # the fused scoring is average-tie exact
+        result["bootstrap_exact_ties"] = boot_exact
     return [result]
 
 

@@ -24,3 +24,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def input_device(x, device=None) -> torch.device:
+    """``device`` if given, else the device of tensor ``x``. A numpy input
+    without a device raises: the caller names where the work runs."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    raise ValueError("pass device= for non-tensor inputs")

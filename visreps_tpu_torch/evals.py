@@ -14,10 +14,13 @@ subject across regions and layers, refits grouped across subjects;
     RDM best matches the neural RDM on a seed-42 subsample of
     ``n_select`` train stimuli;
   * phase 2 — exact (full-resolution) taps of the selected layers on the
-    shared test stimuli, one RDM per unique layer;
-  * scoring — average-tie Spearman point score of model vs neural RDM
-    per pair, plus 1000 × 90 % subsample bootstrap CIs (grouped over
-    pairs), saved to results.db.
+    shared test stimuli (with ``reconstruct_from_pcs``, rebuilt from their
+    top ``pca_k`` PCs), one RDM per unique layer;
+  * scoring — per pair the point score of model vs neural RDM plus
+    1000 × 90 % subsample bootstrap CIs, saved to results.db. Spearman
+    is grouped over the pairs and average-tie exact; Kendall, Pearson
+    and the dense-rank Spearman bootstrap (``bootstrap_exact_ties=
+    false``) score pair by pair (``_score_pairs``).
 
 THINGS (``things-behavior``) averages the store per concept, splits the
 concepts 20/80 (RandomState(42)) into selection and evaluation, selects
@@ -28,8 +31,8 @@ each pair's layer from the NSD RSA row in results.db and scores its
 exact taps on the 220 synthetic stimuli.
 
 Every RDM goes through ``ops.rdm.compute_rdm`` — the Hopper kernel on
-the card. Configurations outside the port raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+the card. Models outside the port raise NotImplementedError naming the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -72,7 +75,13 @@ from visreps_tpu_torch.data.transforms import get_transform
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.extractor import configure_feature_extractor
 from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES, checkpoint_path, load_model
-from visreps_tpu_torch.ops.bootstrap import bootstrap_indices, grouped_scoring, percentile_ci
+from visreps_tpu_torch.ops.bootstrap import (
+    bootstrap_indices,
+    bootstrap_rdm_correlation,
+    grouped_scoring,
+    percentile_ci,
+)
+from visreps_tpu_torch.ops.pca import reconstruct_from_pcs
 from visreps_tpu_torch.ops.rdm import compute_rdm, compute_rdm_correlation_batched
 
 #: Wall-clock seconds of the last eval's phases: model_load_s,
@@ -155,10 +164,8 @@ def _selection_plan(neural, subjects, regions, stimuli, n_select):
 
 
 def _check_slice(cfg) -> None:
-    """Raise for configurations this port does not cover yet."""
-    def missing(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item!r})")
-
+    """Raise for configurations the evals refuse, and for models this port
+    does not cover yet."""
     dataset = cfg.get("neural_dataset", "nsd").lower()
     if dataset not in ("nsd", "tvsd", "things-behavior", "nsd_synthetic"):
         raise ValueError(f"Unsupported neural_dataset={dataset!r}")
@@ -168,17 +175,10 @@ def _check_slice(cfg) -> None:
     if analysis == "encoding_score" and dataset in ("things-behavior", "nsd_synthetic"):
         raise ValueError(f"analysis=encoding_score is not supported for {dataset}. "
                          "Use analysis=rsa instead.")
-    if cfg.get("reconstruct_from_pcs"):
-        missing("reconstruct_from_pcs", "Analysis remainder")
-    if analysis == "rsa":
-        method = cfg.get("compare_method", "spearman").lower()
-        if method != "spearman":
-            missing(f"compare_method={method} scoring", "Pearson/Kendall scoring")
-        if cfg.get("bootstrap_exact_ties", "auto") is False:
-            missing("bootstrap_exact_ties=false (dense-rank bootstrap)", "Pearson/Kendall scoring")
     if (cfg.get("load_model_from") != "checkpoint"
             and cfg.get("model_name", "AlexNet") not in TORCHVISION_RETURN_NODES):
-        missing(f"model_name={cfg.get('model_name')}", "Remaining models")
+        raise NotImplementedError(f"model_name={cfg.get('model_name')} is not ported yet "
+                                  "(ROADMAP.md, 'Remaining models')")
 
 
 def _store_kind(cfg, device: torch.device) -> str:
@@ -289,14 +289,23 @@ def _eval_things(cfg, verbose, device) -> List[Dict]:
     del all_concepts
     rprint(f"  {n_sel} selection concepts, {len(eval_idx)} evaluation concepts", style="success")
 
+    # PC reconstruction needs the per-image matrix, so it averages on the host.
+    pca_k = cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None
+    device_avg = store == "device" and pca_k is None
+
     def re_extract(layer, ids=None):
         """The selected layer's full-resolution evaluation-concept means:
         averaged on the card during the forward for a device store, else
-        averaged on the host."""
-        if store == "device":
+        (and always with ``reconstruct_from_pcs``: the per-image rows are
+        rebuilt from their top ``pca_k`` PCs on the card first) averaged
+        on the host."""
+        if device_avg:
             return extractor.extract_single_layer_mean(
                 dl, layer, evaluation.concept_image_ids, evaluation.stimulus_ids)
         raw, raw_ids = extractor.extract_single_layer(dl, layer)
+        if pca_k is not None:
+            raw = reconstruct_from_pcs({layer: raw}, pca_k, device=device)[layer]
+            rprint(f"    Reconstructed from {pca_k} PCs", style="info")
         return concept_average_exact(raw, raw_ids, evaluation), evaluation.stimulus_ids
 
     scores = compute_traintest_alignment(cfg, selection, evaluation, verbose=verbose,
@@ -309,11 +318,57 @@ def _eval_things(cfg, verbose, device) -> List[Dict]:
     return scores
 
 
+def _model_rdms(cfg, exact: dict, layers) -> dict:
+    """One RDM per layer of the exact taps ``exact`` (popped as they are
+    used); with ``reconstruct_from_pcs`` each tap is first rebuilt from
+    its top ``pca_k`` PCs."""
+    pca_k = cfg.get("pca_k", 1)
+    rdms = {}
+    for layer in layers:
+        acts = exact.pop(layer)
+        if cfg.get("reconstruct_from_pcs"):
+            acts = reconstruct_from_pcs({layer: acts}, pca_k)[layer]
+            rprint(f"    Reconstructed {layer} from {pca_k} PCs", style="info")
+        rdms[layer] = compute_rdm(acts)
+    return rdms
+
+
+def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_test: int):
+    """Point scores and bootstraps of every (region, subject) pair:
+    ({pair: (B,) bootstrap scores} or None without a bootstrap, {pair:
+    point score}). All pairs share RandomState(42)'s index sets.
+
+    Spearman is grouped over the pairs (``grouped_scoring``: neural RDMs,
+    average-tie point scores and bootstrap in one pass) unless a bootstrap
+    asks for dense ranks (``bootstrap_exact_ties=false``). That, Kendall
+    and Pearson take the per-pair route: the P neural RDMs, one batched
+    point-score call, then ``bootstrap_rdm_correlation`` per pair (dense
+    ranks for Spearman: under "auto" or true it never comes here, so the
+    JAX package's tie detection on this route is not needed)."""
+    method = cfg.get("compare_method", "spearman").lower()
+    bootstrap = cfg.get("bootstrap", False)
+    boot_idx = (bootstrap_indices(n_test, cfg.get("n_bootstrap", 1000), seed=42) if bootstrap
+                else np.zeros((0, int(n_test * 0.9)), np.int32))
+    if method == "spearman" and not (bootstrap and cfg.get("bootstrap_exact_ties", "auto") is False):
+        boot_of, point_of = grouped_scoring(model_rdms, neural_mats, pair_layer, boot_idx)
+        return (boot_of if bootstrap else None), point_of
+    pairs = list(neural_mats)
+    device = next(iter(model_rdms.values())).device
+    neural_rdms = {k: compute_rdm(torch.as_tensor(neural_mats[k], device=device)) for k in pairs}
+    points = compute_rdm_correlation_batched(
+        torch.stack([model_rdms[pair_layer[k]] for k in pairs]),
+        torch.stack([neural_rdms[k] for k in pairs]), method).tolist()
+    boot_of = None
+    if bootstrap:
+        boot_of = {k: bootstrap_rdm_correlation(model_rdms[pair_layer[k]], neural_rdms[k],
+                                                method=method, indices=boot_idx)
+                   for k in pairs}
+    return boot_of, dict(zip(pairs, points))
+
+
 def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -> List[Dict]:
     """Two-phase RSA over the extracted SRP store ``acts``."""
     method = cfg.get("compare_method", "spearman").lower()
-    bootstrap = cfg.get("bootstrap", False)
-    n_bootstrap = cfg.get("n_bootstrap", 1000)
     exact_sel = bool(cfg.get("selection_exact_ties", False))
     neural = all_data["neural"]
     shared_test_ids = all_data["shared_test_ids"]
@@ -370,25 +425,20 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
     rprint(f"  Re-extracting {len(unique_layers)} unique layers (one pass) over "
            f"{len(test_stimuli)} test stimuli...", style="info")
     exact, _ = extractor.extract_layers_exact(dl_test, unique_layers, shared_test_ids)
-    model_rdms = {}
-    for layer in unique_layers:
-        model_rdms[layer] = compute_rdm(exact.pop(layer))
+    model_rdms = _model_rdms(cfg, exact, unique_layers)
     _sync(device)  # bill the queued RDM launches to phase 2
     LAST_PHASE_TIMES["phase2_extract_s"] = time.perf_counter() - t0
 
-    # ── Scoring: point scores + grouped bootstrap for every pair ──
+    # ── Scoring: point scores + bootstraps for every pair ──
     t0 = time.perf_counter()
     pair_list = [(r, s) for r in regions for s in subjects]
-    n_test = len(shared_test_ids)
-    boot_idx = (bootstrap_indices(n_test, n_bootstrap, seed=42) if bootstrap
-                else np.zeros((0, int(n_test * 0.9)), np.int32))
     neural_mats = {(r, s): _neural_tensor(neural[r][s]["test"], shared_test_ids)
                    for r, s in pair_list}
-    boot_by_pair, point_of_pair = grouped_scoring(
-        model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, boot_idx)
+    boot_by_pair, point_of_pair = _score_pairs(
+        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
+        len(shared_test_ids))
     del neural_mats
-    all_results = _report(cfg, pair_list, best, point_of_pair,
-                          boot_by_pair if bootstrap else None, sel_scores)
+    all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, sel_scores)
     LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
     return all_results
 
@@ -462,11 +512,8 @@ def _lookup_nsd_best_layers(cfg, subjects, regions) -> Dict:
 def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dict]:
     """RSA on the NSD-Synthetic stimuli with each pair's layer inherited
     from its NSD eval: exact taps of the unique layers (one pass,
-    normalised on the host), one RDM each, then grouped scoring (neural
-    RDMs, average-tie point scores, bootstrap) with a bootstrap, or the
-    batched average-tie point scores without one."""
-    method = cfg.get("compare_method", "spearman").lower()
-    bootstrap = cfg.get("bootstrap", False)
+    normalised on the host; PC-reconstructed with ``reconstruct_from_pcs``),
+    one RDM each, then ``_score_pairs`` as in the NSD eval."""
     seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"
     rprint(f"\n  RSA eval (NSD Synthetic) | cfg{cfg.get('cfg_id', '?')}{seed_letter} "
            f"epoch {cfg.get('epoch', '?')} | {len(subjects)} subjects x {len(regions)} regions | "
@@ -487,24 +534,15 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dic
     dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"), cfg.batchsize,
                                   cfg.get("num_workers", 16))
     exact, _ = extractor.extract_layers_exact(dl_test, unique_layers, test_ids)
-    model_rdms = {layer: compute_rdm(exact.pop(layer)) for layer in unique_layers}
+    model_rdms = _model_rdms(cfg, exact, unique_layers)
     _sync(device)
     LAST_PHASE_TIMES["phase2_extract_s"] = timer.mark("phase2_extract")
 
     pair_list = [(r, s) for r in regions for s in subjects]
     neural_mats = {(r, s): _neural_tensor(test_data["neural"][r][s], test_ids)
                    for r, s in pair_list}
-    boot_by_pair = None
-    if bootstrap:
-        boot_by_pair, point_of_pair = grouped_scoring(
-            model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
-            bootstrap_indices(len(test_ids), cfg.get("n_bootstrap", 1000), seed=42))
-    else:
-        neural_rdms = torch.stack([compute_rdm(torch.as_tensor(neural_mats[k], device=device))
-                                   for k in pair_list])
-        model_stack = torch.stack([model_rdms[best[r][s]] for r, s in pair_list])
-        points = compute_rdm_correlation_batched(model_stack, neural_rdms, method).tolist()
-        point_of_pair = dict(zip(pair_list, points))
+    boot_by_pair, point_of_pair = _score_pairs(
+        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, len(test_ids))
     del neural_mats
     all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, None)
     LAST_PHASE_TIMES["scoring_bootstrap_s"] = timer.mark("scoring")
@@ -547,6 +585,7 @@ def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
             subject_inputs[subj] = (train_acts, test_acts, y_train, y_test)
         per_subject = encoding.compute_encoding_scores_subjects(
             subject_inputs, bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
+            reconstruct_pca_k=cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None,
             cv_precision=cfg.get("encoding_cv_precision", "high"), device=device)
         LAST_PHASE_TIMES.update({f"encoding_{k}": v for k, v in encoding.LAST_PHASE_TIMES.items()})
         for subj in subjects:

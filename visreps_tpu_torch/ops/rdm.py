@@ -8,7 +8,8 @@
 ``ops/rdm_kernel.rdm_from_centered``: the hand-written Hopper kernel on
 CUDA tensors, its plain torch version on CPU tensors. ``compute_rdm_correlation(_batched)``
 correlate upper triangles: Spearman with average tie ranks (scipy's),
-its dense-rank Σd² form, or Pearson.
+its dense-rank Σd² form, Pearson, or Kendall tau-a (batched over the
+pairs in one ``kendall_tau_a`` call).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from visreps_tpu_torch.ops.rdm_kernel import rdm_from_centered
 from visreps_tpu_torch.ops.stats import (
+    kendall_tau_a,
     pearson_corr,
     rankdata_dense,
     spearman_corr,
@@ -59,6 +61,24 @@ def triu_indices(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     return iu[0], iu[1]
 
 
+def index_sets(indices, device) -> torch.Tensor:
+    """(B, m_sub) stimulus index sets (array or tensor) as an int64 tensor
+    on ``device``."""
+    idx = torch.as_tensor(indices).to(device, torch.int64)
+    if idx.dim() != 2:
+        raise ValueError(f"indices must be (B, m_sub), got shape {tuple(idx.shape)}")
+    return idx
+
+
+def selection_masks(ix: torch.Tensor, n: int, iu: torch.Tensor, ju: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """(c, m_sub) index sets over n stimuli → (c, M) 0/1 masks of the
+    triangle pairs (iu, ju) whose two stimuli are both in the set."""
+    included = torch.zeros((ix.shape[0], n), dtype=dtype, device=ix.device)
+    included.scatter_(1, ix, 1)
+    return included[:, iu] * included[:, ju]
+
+
 def upper_triangle(rdm: torch.Tensor) -> torch.Tensor:
     """Vectorize the strict upper triangle of (..., n, n), row-major."""
     iu, ju = triu_indices(rdm.shape[-1], rdm.device)
@@ -73,14 +93,11 @@ def triangle_tie_count(rdm: torch.Tensor) -> int:
 
 
 _CORR_FUNCS = {"pearson": pearson_corr, "spearman": spearman_corr,
-               "spearman_dense": spearman_corr_dense}
+               "spearman_dense": spearman_corr_dense, "kendall": kendall_tau_a}
 
 
 def _corr_fn(correlation: str):
     corr = correlation.lower()
-    if corr == "kendall":
-        raise NotImplementedError(
-            "Kendall RDM comparison is not ported yet (ROADMAP.md, 'Pearson/Kendall scoring')")
     if corr not in _CORR_FUNCS:
         raise ValueError("correlation must be 'Pearson', 'Spearman', or 'Kendall'")
     return _CORR_FUNCS[corr]
@@ -106,4 +123,7 @@ def compute_rdm_correlation_batched(rdms1: torch.Tensor, rdms2: torch.Tensor,
         raise ValueError("RDM stacks must share the same (P, n, n) shape")
     fn = _corr_fn(correlation)
     iu, ju = triu_indices(rdms1.shape[-1], rdms1.device)
-    return torch.stack([fn(a[iu, ju], b[iu, ju]) for a, b in zip(rdms1, rdms2.to(rdms1.device))])
+    rdms2 = rdms2.to(rdms1.device)
+    if fn is kendall_tau_a:  # batched over the pairs
+        return fn(rdms1[:, iu, ju], rdms2[:, iu, ju])
+    return torch.stack([fn(a[iu, ju], b[iu, ju]) for a, b in zip(rdms1, rdms2)])

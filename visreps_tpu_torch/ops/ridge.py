@@ -32,6 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from visreps_tpu_torch.device import input_device
+
 _PRECISIONS = ("default", "high", "highest")
 
 
@@ -59,16 +61,6 @@ def _kfold_bounds(n: int, n_folds: int) -> list[tuple[int, int]]:
         bounds.append((start, start + s))
         start += s
     return bounds
-
-
-def input_device(x, device=None) -> torch.device:
-    """``device`` if given, else the device of tensor ``x``. A numpy input
-    without a device raises: the caller names where the work runs."""
-    if device is not None:
-        return torch.device(device)
-    if isinstance(x, torch.Tensor):
-        return x.device
-    raise ValueError("pass device= for non-tensor inputs")
 
 
 def _f32(x, device) -> torch.Tensor:

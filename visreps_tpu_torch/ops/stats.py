@@ -1,9 +1,16 @@
 """Rank statistics and correlations on tensors.
 
-Ports of ``visreps_tpu/ops/stats.py:27-91``. Ranks use
+Ports of ``visreps_tpu/ops/stats.py``. Ranks use
 ``torch.argsort(..., stable=True)`` where the JAX package uses
 ``jnp.argsort`` (stable): tie order decides dense ranks. Every function
 works along the last axis and broadcasts over leading ones.
+
+``kendall_tau_a`` is Knight's algorithm: sort by (x, then y), count the
+tie pairs, and count the y-sequence's strict inversions in log₂P merge
+rounds of a batched binary search (``torch.searchsorted`` over the
+rounds' sorted blocks). Counts are int64 and the tau is combined in
+float64, so it is exact up to its final f32 rounding (the JAX package
+sums per-slot int32 counts in f32).
 """
 from __future__ import annotations
 
@@ -80,3 +87,84 @@ def spearman_corr_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = float(x.shape[-1])
     d2 = ((rankdata_dense(x) - rankdata_dense(y)) ** 2).sum(-1)
     return 1.0 - 6.0 * d2 / (n * (n * n - 1.0))
+
+
+# ─────────────────────── Kendall tau-a ────────────────────────
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
+    """Order along the last axis that sorts by ``primary``, ties by
+    ``secondary`` (``jnp.lexsort((secondary, primary))``): two stable
+    argsorts, the secondary key first."""
+    o1 = torch.argsort(secondary, dim=-1, stable=True)
+    o2 = torch.argsort(torch.gather(primary, -1, o1), dim=-1, stable=True)
+    return torch.gather(o1, -1, o2)
+
+
+def _eq_prev(v: torch.Tensor) -> torch.Tensor:
+    """v[..., i] == v[..., i−1], False at i = 0."""
+    first = torch.zeros_like(v[..., :1], dtype=torch.bool)
+    return torch.cat([first, v[..., 1:] == v[..., :-1]], dim=-1)
+
+
+def _tie_pair_count(eq_prev: torch.Tensor) -> torch.Tensor:
+    """Σ c·(c−1)/2 over the tie groups of a sorted order given its
+    adjacency flags (int64): with a_i the start of element i's group,
+    Σ_i (i − a_i) = Σ_groups Σ_{j<c} j."""
+    idx = torch.arange(eq_prev.shape[-1], device=eq_prev.device)
+    return (idx - _group_starts(eq_prev)).sum(-1)
+
+
+def _count_inversions(y: torch.Tensor) -> torch.Tensor:
+    """Strict inversions (i < j, y_i > y_j) along the last axis (int64).
+
+    Merge rounds: at width w the (+inf-padded) sequence is a run of
+    sorted blocks of width w; each right block's elements count the left
+    block's elements above them (``w − searchsorted(L, r, right=True)``),
+    then each pair of blocks is merged by a sort."""
+    lead, n = y.shape[:-1], y.shape[-1]
+    P = _next_pow2(max(n, 2))
+    a = torch.full((*lead, P), float("inf"), dtype=torch.float32, device=y.device)
+    a[..., :n] = y
+    a = a.reshape(-1, P)
+    total = torch.zeros(a.shape[0], dtype=torch.int64, device=y.device)
+    w = 1
+    while w < P:
+        pairs = a.reshape(-1, 2, w)                              # (rows · blocks, L|R, w)
+        below = torch.searchsorted(pairs[:, 0].contiguous(), pairs[:, 1].contiguous(),
+                                   right=True)                   # #{l ≤ r} per r
+        total += (w - below).reshape(a.shape[0], -1).sum(-1)
+        a = torch.sort(pairs.reshape(-1, 2 * w), dim=-1).values.reshape(-1, P)
+        w *= 2
+    return total.reshape(lead)
+
+
+def kendall_tau_a(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Kendall tau-a = (C − D) / n0 along the last axis, tie pairs counted
+    as neither (scipy's tau-b converted to tau-a, as the reference does);
+    leading axes are a batch. float32 out, NaN for fewer than 2 values.
+
+    Sort by (x, then y); D = strict inversions of the y-sequence;
+    C − D = n0 − t_x − t_y + t_xy − 2D."""
+    x, y = torch.broadcast_tensors(x.to(torch.float32), y.to(torch.float32))
+    n = x.shape[-1]
+    order = lexsort2(x, y)
+    xs = torch.gather(x, -1, order)
+    ys = torch.gather(y, -1, order)
+    eq_x = _eq_prev(xs)
+    t_x = _tie_pair_count(eq_x)
+    t_y = _tie_pair_count(_eq_prev(torch.sort(y, dim=-1).values))
+    t_xy = _tie_pair_count(eq_x & _eq_prev(ys))  # joint ties: runs of equal (x, y)
+    d = _count_inversions(ys)
+    n0 = n * (n - 1) / 2.0
+    c_minus_d = n0 - t_x.double() - t_y.double() + t_xy.double() - 2.0 * d.double()
+    if n0 <= 0:
+        return torch.full(c_minus_d.shape, float("nan"), dtype=torch.float32, device=x.device)
+    return (c_minus_d / n0).to(torch.float32)
