@@ -149,11 +149,33 @@ non-zero without the final line:
      encoding subject (Woodbury shape) with reconstruct_pca_k=16, card
      against CPU at highest on the alphas ≥ 1 (1e-4, same layers).
      The launch checks of e2e hold for all three (S·(T + R) + U + P).
- 14. path — the RDM shapes every RSA eval called, with their launch
-     counts and the kernel's time at each: its time on the main path, Σ
-     launches × ms. A shape the kernel phase did not check gets the
-     kernel phase's checks here before it is timed, beside the plain
-     version's and torch.corrcoef's times.
+ 13d. cross_model — the JAX bench's stage_cross_model through
+     ``analysis/cross_model_rdms.run``: AlexNet, ViT-B/16 and the CLIP and
+     DINOv2 ViT-L/14 towers (1024 wide, 24 blocks, 16 heads, patch 14)
+     from seeded random weights (printed as such: no tower weights are in
+     the repository), every layer's RDM over 256 synthetic images (batch
+     64, SRP k=4096) and the Spearman matrix of every model pair. First
+     each tower at full width: its parameter count equal to the JAX
+     tower's and a 2-image forward on the card against the CPU (every tap
+     within 1e-4 of its largest |value|), with the card's ms per image of
+     an all-taps forward at batch 64. Checks no model error, 7 + 14 + 26 +
+     26 = 73 layer RDMs with one kernel launch each, 10 finite matrices and
+     every self-pair's diagonal within 1e-6 of 1; prints the wall, each
+     model's seconds, the peak memory and the best layer pair of each
+     matrix.
+ 13e. analyses — ``analysis/extract_representations``' CLI on the train
+     phase's 1,600 JPEGs (AlexNet; conv5, fc1, fc2) with SRP k=4096,
+     ``--spatial-pool`` and exact taps: the SRP rows equal the SRP of the
+     exact taps and the pooled rows their H × W means (1e-5 of the largest
+     value); ``compute_eigenspectra`` on the SRP file against an f64 SVD
+     (1e-5); Two-NN IDs of conv5_post and fc1_post (1e-4 relative) and a
+     PLSSVD cross-decomposition against a planted response (1e-4), each
+     card against CPU.
+ 14. path — the RDM shapes every RSA eval and cross_model called, with
+     their launch counts and the kernel's time at each: its time on the
+     main path, Σ launches × ms. A shape the kernel phase did not check
+     gets the kernel phase's checks here before it is timed, beside the
+     plain version's and torch.corrcoef's times.
  15. encoding — the NSD encoding-score eval through ``run.main`` at full
      width (untrained AlexNet, 14 taps, SRP k=4096, uint8 transfer,
      ``encoding_cv_precision=high``, 1000 bootstraps, results.db) on a
@@ -169,7 +191,7 @@ non-zero without the final line:
      and batched, peak memory, and the operation counts of the
      selection sweep and the refits with their bounds.
  16. encoding_check — one subject's ``compute_encoding_scores_subject``
-     on planted data (y = tap3·W + noise; 3 taps, 2 regions × 1,000
+     on planted data (y = tap3·W + noise; 3 taps, 2 regions × 400
      voxels, 1,000 test rows) on both solver routes: n_train 6,400 and
      d 512 (Woodbury), n_train 400 and d 512 (per-fold eigh, on the
      alphas ≥ 1, where its rank-deficient fold Grams do not decide the
@@ -185,7 +207,7 @@ non-zero without the final line:
      the layers each selects, the largest score difference and both
      times.
  17. kernels — the per-kernel summary line (launches: the twelve RSA
-     evals; the encoding eval launches none).
+     evals and cross_model; the encoding eval and the analyses launch none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -202,6 +224,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -247,7 +270,7 @@ NSD_REGIONS = ["early visual stream", "ventral visual stream", "V1", "V2", "V3",
 ENCODING = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 2, "n_regions": 2,
             "n_voxels": 7604, "img_size": 256}  # 7,604: the widest NSD ROI of the JAX bench
 ENC_CHECK = {"routes": {"woodbury": (6400, 512), "eigh": (400, 512)},
-             "taps": 3, "voxels": 1000, "n_test": 1000, "n_bootstrap": 1000}
+             "taps": 3, "voxels": 400, "n_test": 1000, "n_bootstrap": 1000}
 ENC_TOL = 1e-4       # card vs CPU at "highest": scores and CIs
 ENC_HIGH_TOL = 1e-3  # "high" vs "highest" on the card: |Δscore|
 TF32_PEAK_OPS = 495e12
@@ -311,6 +334,26 @@ ENC_PCA_K = 16
 # encoding_delta: visreps_tpu/benchmarks/stages.py:296 stage_encoding_delta's shape.
 ENC_DELTA = {"n_train": 9000, "n_test": 1000, "d": 4096, "taps": 14,
              "voxels": (5000, 7604, 2000, 2000, 1500, 900)}
+# cross_model: visreps_tpu/benchmarks/stages.py:706 stage_cross_model's defaults,
+# from seeded random weights (no tower weights are in the repository): layer
+# RDMs per model (return nodes, extract_pre_and_post off) and the card-vs-CPU
+# tolerance of one full-width tower forward. TOWER_PARAMS: the JAX towers'
+# parameters at 224 px (jax.eval_shape of visreps_tpu/models/hf_vit.py;
+# tests/test_torch_port_towers.py holds the port's to them on the CPU).
+CROSS_MODEL = {"models": ["AlexNet", "ViTBase", "clip-vit-l14", "dinov2-l14"],
+               "n_images": 256, "batch": 64, "srp_k": 4096, "method": "spearman",
+               "layers": {"AlexNet": 7, "ViTBase": 14, "clip-vit-l14": 26, "dinov2-l14": 26}}
+TOWER_PARAMS = {"clip-vit-l14": 303_966_208, "dinov2-l14": 303_227_904}
+CORR_DIAG_TOL = 1e-6  # a self-pair's layer-with-itself Spearman: 1 up to f32 rounding
+# analyses: extract_representations' CLI on the train phase's JPEGs (AlexNet,
+# its default nodes, batch 128) in its three variants; consistency of the
+# variants (SRP of the exact taps, H × W means of the exact conv taps) and
+# eigenvalues against an f64 SVD within ``tol`` of the largest value; Two-NN
+# IDs and the cross-decomposition score, card against CPU (``id_tol``
+# relative, ``xdec_tol`` absolute), on a planted response of ``voxels``
+# columns with a rank-``rank`` signal.
+ANALYSES = {"nodes": ["conv5", "fc1", "fc2"], "batch": 128, "tol": 1e-5, "id_tol": 1e-4,
+            "xdec_tol": 1e-4, "voxels": 500, "rank": 25}
 
 
 def emit(obj) -> None:
@@ -572,35 +615,50 @@ def drive(overrides: list[str]) -> dict:
 
     from visreps_tpu_torch import evals, run
     from visreps_tpu_torch.data import loader
+
+    routes = Counter(loader.ROUTES)
+    with rdm_probe() as probe:
+        t0 = time.perf_counter()
+        results = run.main(["--mode", "eval", "--config", str(ROOT / "configs/eval/base.json"),
+                            "--override", *overrides])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"results": results, "launches": probe["launches"], "shapes": probe["shapes"],
+            "seconds": wall, "phases": dict(evals.LAST_PHASE_TIMES),
+            "decode_routes": dict(Counter(loader.ROUTES) - routes),
+            "peak_mem_gb": probe["peak_mem_gb"]}
+
+
+@contextmanager
+def rdm_probe():
+    """While in use, counts the RDM shapes ``compute_rdm`` hands the kernel
+    wrapper (a Counter of (n, d, dtype) under "shapes"); the kernel's
+    launch count is set to 0 on entry and read on exit ("launches"), with
+    the peak device memory in between ("peak_mem_gb")."""
+    import torch
+
     from visreps_tpu_torch.ops import rdm as rdm_ops
     from visreps_tpu_torch.ops import rdm_kernel
 
-    shapes = Counter()
+    seen = {"shapes": Counter()}
     wrapper = rdm_ops.rdm_from_centered
 
     def probe(xc, std, correction=1e-12):
-        shapes[(xc.shape[0], xc.shape[1], str(xc.dtype).removeprefix("torch."))] += 1
+        seen["shapes"][(xc.shape[0], xc.shape[1], str(xc.dtype).removeprefix("torch."))] += 1
         return wrapper(xc, std, correction)
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rdm_ops.rdm_from_centered = probe
-    routes = Counter(loader.ROUTES)
     try:
         rdm_kernel.LAUNCHES = 0
-        t0 = time.perf_counter()
-        results = run.main(["--mode", "eval", "--config", str(ROOT / "configs/eval/base.json"),
-                            "--override", *overrides])
+        yield seen
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = rdm_kernel.LAUNCHES
+        seen["launches"] = rdm_kernel.LAUNCHES
+        seen["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
         rdm_ops.rdm_from_centered = wrapper
-    return {"results": results, "launches": launches, "shapes": shapes, "seconds": wall,
-            "phases": dict(evals.LAST_PHASE_TIMES),
-            "decode_routes": dict(Counter(loader.ROUTES) - routes),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def check_rsa_results(results: list, n_expected: int, n_selection: int) -> None:
@@ -1795,6 +1853,207 @@ def phase_encoding_delta() -> None:
     torch.cuda.empty_cache()
 
 
+def check_towers() -> None:
+    """CLIP and DINOv2 ViT-L/14 at full width from seeded weights
+    (``load_tower(pretrained=False)``): the parameter count equal to the
+    JAX tower's, a 2-image 224 px forward on the card against the CPU's
+    (every tap within MODEL_TOL of its largest |value|), and the card's ms
+    per image of an all-taps forward at the cross-model batch."""
+    import torch
+
+    from visreps_tpu_torch.models.hf_vit import load_tower
+
+    x = torch.randn((2, 3, 224, 224), generator=torch.Generator().manual_seed(6))
+    failures = []
+    for name, n_jax in TOWER_PARAMS.items():
+        model = load_tower(name, pretrained=False, device="cpu")
+        points = [p for spec in model.TAPS.values() for p in spec]
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            _, want = model(x, capture=points)
+            model.to("cuda")
+            _, got = model(x.to("cuda"), capture=points)
+            if set(got) != set(want):
+                raise RuntimeError(f"{name}: the card's taps {sorted(got)} are not the CPU's")
+            errs = {p: ((got[p].cpu() - want[p]).abs().max() / want[p].abs().max()).item()
+                    for p in want}
+            xb = torch.randn((CROSS_MODEL["batch"], 3, 224, 224), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: model(xb, capture=points), 3)[0]
+        worst = max(errs, key=errs.get)
+        emit({"phase": "towers", "model": name, "params": n_params, "params_jax": n_jax,
+              "taps": len(want), "max_rel_err": errs[worst], "worst_tap": worst,
+              "tol": MODEL_TOL, "batch": CROSS_MODEL["batch"], "forward_ms": ms,
+              "ms_per_image": ms / CROSS_MODEL["batch"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if n_params != n_jax:
+            failures.append(f"{name}: {n_params} parameters, the JAX tower has {n_jax}")
+        if not errs[worst] <= MODEL_TOL:
+            failures.append(f"{name}: tap {worst} on the card differs from the CPU by "
+                            f"{errs[worst]} > {MODEL_TOL}")
+        del model, want, got, xb
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
+def phase_cross_model(tmp: Path) -> dict:
+    """The JAX bench's stage_cross_model on the card through the port's
+    ``cross_model_rdms.run``: AlexNet, ViT-B/16 and the CLIP and DINOv2
+    ViT-L/14 towers from seeded random weights, every layer's RDM over 256
+    synthetic images (batch 64, SRP k=4096) and the Spearman matrix of
+    every model pair. Checks no model error, each model's layer count, one
+    kernel launch per layer RDM (73), 10 finite matrices and each
+    self-pair's diagonal within CORR_DIAG_TOL of 1. Returns the launches
+    and RDM shapes for the path phase and the summary line."""
+    import numpy as np
+    import torch
+
+    from visreps_tpu_torch.analysis import cross_model_rdms
+
+    check_towers()
+    spec = CROSS_MODEL
+    models = spec["models"]
+    with rdm_probe() as probe:
+        t0 = time.perf_counter()
+        payload = cross_model_rdms.run(models, f"synthetic:{spec['n_images']}",
+                                       str(tmp / "cross_model_rdms.npz"), srp_k=spec["srp_k"],
+                                       batch_size=spec["batch"], method=spec["method"],
+                                       pretrained=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    corr = {k: v for k, v in payload.items() if k.startswith("corr__")}
+    layers = {m: len(payload.get(f"layers__{m}", ())) for m in models}
+    expected = sum(spec["layers"].values())
+    diag = max((float(np.abs(np.diag(v) - 1.0).max()) for k, v in corr.items()
+                if k.split("__")[1] == k.split("__")[2]), default=float("inf"))
+    rec = {"phase": "cross_model", "weights": "random init (seeded)", "seconds": wall,
+           "model_seconds": dict(cross_model_rdms.LAST_MODEL_TIMES), "layers": layers,
+           "n_images": spec["n_images"], "batch": spec["batch"], "srp_k": spec["srp_k"],
+           "rdm_launches": probe["launches"],
+           "rdm_shapes": [[*k, v] for k, v in sorted(probe["shapes"].items())],
+           "corr_matrices": len(corr), "self_diag_err": diag, "tol": CORR_DIAG_TOL,
+           "peak_mem_gb": probe["peak_mem_gb"],
+           "summary": [list(r) for r in payload["summary"]],
+           "model_errors": [str(e) for e in payload.get("model_errors", ())]}
+    emit(rec)
+    if rec["model_errors"]:
+        raise RuntimeError(f"cross_model: models failed: {rec['model_errors']}")
+    if layers != spec["layers"]:
+        raise RuntimeError(f"cross_model: layers {layers}, expected {spec['layers']}")
+    check_launches(probe, expected, "one per layer RDM")
+    n_pairs = len(models) * (len(models) + 1) // 2
+    if len(corr) != n_pairs or not all(np.isfinite(v).all() for v in corr.values()):
+        raise RuntimeError(f"cross_model: {len(corr)} matrices, expected {n_pairs} finite ones")
+    if not diag <= CORR_DIAG_TOL:
+        raise RuntimeError(f"cross_model: self-pair diagonal off 1 by {diag} > {CORR_DIAG_TOL}")
+    return probe
+
+
+def _rel_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    import numpy as np
+
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def phase_analyses(tmp: Path, data: dict) -> None:
+    """The offline analyses on the card. ``extract_representations``' CLI
+    on the train phase's 1,600 JPEGs (AlexNet, seed 0) in its three
+    variants: SRP k=4096, ``--spatial-pool`` and exact taps. The SRP
+    rows must equal the SRP of the exact taps and the pooled rows the
+    H × W means of the exact post-ReLU taps (within ANALYSES["tol"] of the
+    largest value). Then ``compute_eigenspectra.process_file`` on the SRP
+    file against an f64 SVD of the same rows, Two-NN IDs of two layers and
+    a PLSSVD cross-decomposition of conv5_post against a planted response,
+    each on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from visreps_tpu_torch.analysis import (compute_eigenspectra, compute_twonn_id,
+                                            cross_decomposition, extract_representations)
+    from visreps_tpu_torch.ops.srp import SRPTransform
+
+    spec = ANALYSES
+    common = ["--model", "AlexNet", "--dataset", "imagenet",
+              "--dataset-path", data["dataset_path"], "--label-file", data["label_file"],
+              "--return-nodes", *spec["nodes"], "--batch-size", str(spec["batch"]),
+              "--device", "cuda"]
+    feats, seconds = {}, {}
+    for variant, extra in (("srp", ["--srp-k", "4096"]),
+                           ("pooled", ["--srp-k", "0", "--spatial-pool"]),
+                           ("exact", ["--srp-k", "0"])):
+        path = tmp / f"features_{variant}.npz"
+        t0 = time.perf_counter()
+        if extract_representations.main([*common, *extra, "--out", str(path)]) != 0:
+            raise RuntimeError(f"extract_representations ({variant}) failed")
+        seconds[f"extract_{variant}_s"] = time.perf_counter() - t0
+        feats[variant] = dict(np.load(path))
+    ids = [list(f.pop("image_ids")) for f in feats.values()]
+    if any(i != ids[0] for i in ids) or len(ids[0]) != TRAIN["n_images"]:
+        raise RuntimeError("the three variants saw different images")
+    srp, pooled, exact = feats["srp"], feats["pooled"], feats["exact"]
+    proj = SRPTransform(k=4096, seed=0, device="cuda")
+    errs = {"srp_vs_exact": max(
+        _rel_err(proj(torch.from_numpy(exact[k]).cuda()).cpu().numpy(), srp[k]) for k in srp)}
+    n = TRAIN["n_images"]
+    conv_mean = exact["conv5_post"].reshape(n, 13, 13, 256).astype(np.float64).mean(axis=(1, 2))
+    errs["pooled_vs_exact"] = max(_rel_err(pooled["conv5"], conv_mean),
+                                  _rel_err(pooled["fc1"], exact["fc1_post"]))
+
+    t0 = time.perf_counter()
+    eig = np.load(compute_eigenspectra.process_file(str(tmp / "features_srp.npz"),
+                                                    str(tmp / "eigenspectra"), device="cuda"))
+    seconds["eigenspectra_s"] = time.perf_counter() - t0
+    eig_err = 0.0
+    for k, x in srp.items():
+        x64 = torch.from_numpy(x).cuda().double()
+        ref = (torch.linalg.svdvals(x64 - x64.mean(dim=0)) ** 2 / (n - 1)).cpu().numpy()
+        eig_err = max(eig_err, _rel_err(eig[f"{k}_eigenvalues"], ref))
+    errs["eigenvalues_vs_f64"] = eig_err
+
+    ids_card, ids_cpu = {}, {}
+    t0 = time.perf_counter()
+    for k in ("conv5_post", "fc1_post"):
+        ids_card[k] = compute_twonn_id.intrinsic_dim_layer(srp[k], device="cuda")
+    seconds["twonn_s"] = time.perf_counter() - t0
+    for k in ids_card:
+        ids_cpu[k] = compute_twonn_id.intrinsic_dim_layer(srp[k], device="cpu")
+    errs["twonn_card_vs_cpu"] = max(abs(ids_card[k][f] - ids_cpu[k][f]) / abs(ids_cpu[k][f])
+                                    for k in ids_card for f in ("id", "id_half_mean"))
+
+    rng = np.random.RandomState(0)
+    acts = srp["conv5_post"]
+    weights = rng.randn(acts.shape[1], spec["rank"]) @ rng.randn(spec["rank"], spec["voxels"])
+    signal = acts @ weights
+    neural = (signal / signal.std() + rng.randn(n, spec["voxels"])).astype(np.float32)
+    t0 = time.perf_counter()
+    xdec_card = cross_decomposition.compute_cross_decomposition_alignment(acts, neural,
+                                                                          device="cuda")
+    seconds["cross_decomposition_s"] = time.perf_counter() - t0
+    xdec_cpu = cross_decomposition.compute_cross_decomposition_alignment(acts, neural,
+                                                                         device="cpu")
+    errs["cross_decomposition_card_vs_cpu"] = float(np.abs(
+        np.subtract(xdec_card["fold_correlations"], xdec_cpu["fold_correlations"])).max())
+
+    rec = {"phase": "analyses", "n_images": n, **seconds,
+           "shapes": {v: {k: list(a.shape) for k, a in f.items()} for v, f in feats.items()},
+           "effective_dim": {k: float(eig[f"{k}_effective_dim"]) for k in srp},
+           "twonn_id": {k: v["id"] for k, v in ids_card.items()},
+           "cross_decomposition": xdec_card["mean_cv_correlation"], **errs,
+           "tol": spec["tol"], "id_tol": spec["id_tol"], "xdec_tol": spec["xdec_tol"]}
+    emit(rec)
+    failures = [k for k in ("srp_vs_exact", "pooled_vs_exact", "eigenvalues_vs_f64")
+                if not errs[k] <= spec["tol"]]
+    if not errs["twonn_card_vs_cpu"] <= spec["id_tol"]:
+        failures.append("twonn_card_vs_cpu")
+    if not errs["cross_decomposition_card_vs_cpu"] <= spec["xdec_tol"]:
+        failures.append("cross_decomposition_card_vs_cpu")
+    if failures:
+        raise RuntimeError(f"analyses: {failures} out of tolerance: {errs}")
+
+
 def phase_path(shapes: Counter, records: list) -> float:
     """The kernel's time on the main path: at each RDM shape the evals
     asked for, its launches there times its ms per call. A shape the
@@ -2159,6 +2418,8 @@ def main() -> int:
         rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in PRETRAINED)
         rsa_runs.extend(phase(meta, rsa_runs[0])
                         for phase in (phase_kendall, phase_dense_boot, phase_pca))
+        rsa_runs.append(phase_cross_model(tmp))
+        phase_analyses(tmp, train_data)
         phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
     finally:

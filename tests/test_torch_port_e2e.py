@@ -254,17 +254,21 @@ class TestStandalone:
             "for m in pkgutil.walk_packages(visreps_tpu_torch.__path__, 'visreps_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "new = {'visreps_tpu_torch.models.' + m for m in ('resnet', 'vit', 'ecnet', "
-            "'nn_ops', 'torch_import')} | {'visreps_tpu_torch.benchmarks.weights'}\n"
+            "'nn_ops', 'torch_import', 'hf_vit', 'pooling')} | {'visreps_tpu_torch.analysis.' + m "
+            "for m in ('cross_model_rdms', 'extract_representations', 'compute_eigenspectra', "
+            "'compute_twonn_id', 'cross_decomposition', 'metrics')} | "
+            "{'visreps_tpu_torch.benchmarks.weights', 'visreps_tpu_torch.ops.metrics'}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'visreps_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu')]\n"
             "assert not bad, bad\n")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr
 
     def test_no_jax_package_imports_in_source(self):
-        pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|visreps_tpu)(\.|\s|$)")
+        pattern = re.compile(
+            r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|transformers|visreps_tpu)(\.|\s|$)")
         sources = [p for p in sorted(PKG.rglob("*.py"))
                    if "_build" not in p.relative_to(PKG).parts]  # git-ignored build output
         assert len(sources) > 20

@@ -130,17 +130,17 @@ def wrap_with_pca(dataset, base_path, cfg, split):
     return PCADataset(dataset, pca_path, num_classes=n_classes)
 
 
-def _make_loader(dataset, cfg):
-    return PrefetchLoader(dataset, batch_size=cfg.get("batchsize", 128), shuffle=True,
+def _make_loader(dataset, cfg, shuffle=True):
+    return PrefetchLoader(dataset, batch_size=cfg.get("batchsize", 128), shuffle=shuffle,
                           num_workers=cfg.get("num_workers", 16), seed=cfg.get("seed", 0))
 
 
-def prepare_imgnet_data(cfg, base_path=None):
+def prepare_imgnet_data(cfg, base_path=None, shuffle=True, train_test_split=True):
     if base_path is None:
         base_path = cfg.get("dataset_path", get_env_var("IMAGENET_DATA_DIR"))
     datasets, loaders = {}, {}
-    for split in ("train", "test"):
-        augment = cfg.get("data_augment", False) and split == "train"
+    for split in (("train", "test") if train_test_split else ("all",)):
+        augment = cfg.get("data_augment", False) and split == "train" and shuffle
         ds = ImageNetDataset(base_path, split=split,
                              transform=get_transform("imgnet", data_augment=augment),
                              train_fraction=cfg.get("train_fraction", 1.0),
@@ -150,16 +150,16 @@ def prepare_imgnet_data(cfg, base_path=None):
             ds = wrap_with_pca(ds, os.path.join("pca_labels", cfg.get("pca_labels_folder")),
                                cfg, split)
         datasets[split] = ds
-        loaders[split] = _make_loader(ds, cfg)
+        loaders[split] = _make_loader(ds, cfg, shuffle)
     rprint(f"ImageNet: {', '.join(f'{k}={len(v)}' for k, v in datasets.items())}")
     return datasets, loaders
 
 
-def prepare_tinyimgnet_data(cfg):
+def prepare_tinyimgnet_data(cfg, shuffle=True, train_test_split=True):
     base_path = cfg.get("dataset_path", get_env_var("TINY_IMAGENET_DATA_DIR"))
     datasets, loaders = {}, {}
-    for split in ("train", "val"):
-        augment = cfg.get("data_augment", True) and split == "train"
+    for split in (("train", "val") if train_test_split else ("val",)):
+        augment = cfg.get("data_augment", True) and split == "train" and shuffle
         ds = TinyImageNetDataset(base_path, split,
                                  get_transform("tiny-imagenet", data_augment=augment))
         frac = cfg.get("train_fraction", 1.0)
@@ -169,20 +169,23 @@ def prepare_tinyimgnet_data(cfg):
         if cfg.get("pca_labels", False):
             ds = wrap_with_pca(ds, os.path.join("pca_labels", cfg.get("pca_labels_folder")),
                                cfg, split)
-        datasets[split] = ds
-        loaders[split] = _make_loader(ds, cfg)
+        key = split if train_test_split else "all"
+        datasets[key] = ds
+        loaders[key] = _make_loader(ds, cfg, shuffle)
     rprint(f"Tiny ImageNet: {', '.join(f'{k}={len(v)}' for k, v in datasets.items())}")
     return datasets, loaders
 
 
-def get_obj_cls_loader(cfg):
-    """(datasets, loaders) for training: shuffled, split train/test
-    (train/val for Tiny-ImageNet)."""
+def get_obj_cls_loader(cfg, shuffle=True, train_test_split=True):
+    """(datasets, loaders): by default shuffled and split train/test
+    (train/val for Tiny-ImageNet), as training takes them; with
+    ``train_test_split=False`` one unsplit ``"all"`` split (Tiny-ImageNet:
+    its val split), as feature extraction takes it."""
     name = cfg.get("dataset", "tiny-imagenet")
     if name == "tiny-imagenet":
-        return prepare_tinyimgnet_data(cfg)
+        return prepare_tinyimgnet_data(cfg, shuffle, train_test_split)
     if name == "imagenet":
-        return prepare_imgnet_data(cfg)
+        return prepare_imgnet_data(cfg, shuffle=shuffle, train_test_split=train_test_split)
     if name.startswith("imagenet-mini-"):
         try:
             n = int(name.split("-")[-1])
@@ -192,5 +195,6 @@ def get_obj_cls_loader(cfg):
             f"imagenet-mini-{n}"
         if not mini.exists():
             raise ValueError(f"ImageNet mini dataset not found at {mini}")
-        return prepare_imgnet_data(cfg, base_path=str(mini))
+        return prepare_imgnet_data(cfg, base_path=str(mini), shuffle=shuffle,
+                                   train_test_split=train_test_split)
     raise ValueError(f"Unsupported dataset: {name}")

@@ -14,7 +14,11 @@ and LayerNorm scales. Flax's attention kernels are 3-D: query/key/value
 (heads, head_dim, hidden) becomes (hidden, heads·head_dim), and their
 (heads, head_dim) biases are flattened. Parameters owned directly keep
 their names: ECTiedNet's depthwise ``dw_weight`` (3, 3, 1, C) → (C, 1, 3, 3),
-``dw_bias``, ``gamma``, and ViT's ``cls_token`` and ``pos_embedding``.
+``dw_bias``, ``gamma``, ViT's ``cls_token`` and ``pos_embedding``, and the
+CLIP / DINOv2 towers' ``class_embedding``, ``cls_token`` (1, 1, H), 2-D
+``pos_embedding`` and LayerScales ``ls1`` / ``ls2``; the towers' attention
+is four 2-D dense layers ``q`` / ``k`` / ``v`` / ``out``, carried as any
+dense layer is.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 from visreps_tpu_torch.ops.srp import SRPTransform
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
-_KEPT = ("dw_bias", "gamma", "cls_token", "pos_embedding")
+_KEPT = ("dw_bias", "gamma", "cls_token", "pos_embedding", "class_embedding", "ls1", "ls2")
 _ATTENTION = ("query", "key", "value", "out")
 
 
