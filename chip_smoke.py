@@ -58,9 +58,31 @@ non-zero without the final line:
      the card against the same step on the CPU (loss and gradient norm
      within rtol 1e-4, BN running statistics within 1e-4 of each
      tensor's largest value).
+  7a. train_families — the train step of VGG16, ResNet18, ResNet50,
+     ViT-B/16 and ECTiedNet at full width (1000 classes, batch 256,
+     AdamW) in f32 and in the JAX package's bf16 compute
+     (``train_compute_dtype=bf16``: bf16 copies of the f32 parameters and
+     the images, f32 loss, f32 optimizer state and BatchNorm statistics):
+     ms per step over 5 steps after a warm-up, images/s, peak memory and
+     the bound (3 × the forward's FLOPs from ``torch.utils.flop_counter``
+     × batch over the f32 FMA peak or the bf16 tensor-core peak; every
+     family fits at 256). Parameters and optimizer
+     state must stay f32. Each family's f32 step at batch 8 without
+     dropout on the card against the CPU's (loss, gradient norm and BN
+     running statistics within rtol 1e-4). Also whether ``F.batch_norm``
+     on the card takes bf16 affine parameters beside f32 statistics.
   8. e2e_ckpt — the e2e eval again, of the checkpoint the train phase
      wrote (``load_model_from=checkpoint``, cfg_id 32, epoch 2), with the
      same checks; its rows must carry cfg_id 32 and epoch 2.
+  8'. train_resume — ResNet18 through ``Trainer`` on the train phase's
+     JPEGs (PCA labels, 4 classes, batch 256, AdamW, 2 epochs,
+     ``save_resume_state``, a checkpoint every epoch); then a second
+     Trainer from a copy of its directory with ``resume_from_epoch=1``:
+     it must start at epoch 2, step 10, with epoch 1's saved optimizer
+     state, and every step's batch and model on the card. Prints epoch
+     2's losses of both runs, then runs the e2e eval of the resumed
+     run's epoch-2 checkpoint (cfg_id 4, epoch 2, 10 taps) with e2e's
+     checks.
   8a. trace — ``core/profiling.trace`` (torch.profiler, CPU and CUDA)
      around the e2e eval (with e2e's checks, as trace_e2e) and around 10
      trainer steps in train_step's configuration (CustomCNN, 1000
@@ -206,8 +228,9 @@ non-zero without the final line:
      encoding_cv_precision high and highest, without bootstrap; prints
      the layers each selects, the largest score difference and both
      times.
- 17. kernels — the per-kernel summary line (launches: the twelve RSA
-     evals and cross_model; the encoding eval and the analyses launch none).
+ 17. kernels — the per-kernel summary line (launches: the thirteen RSA
+     evals and cross_model; the encoding eval, the analyses and training
+     launch none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -277,6 +300,14 @@ TF32_PEAK_OPS = 495e12
 TRAIN = {"n_images": 1600, "batch": 256, "epochs": 2, "pca_n_classes": 32}
 STEP = {"batch": 256, "iters": 8, "classes": 1000, "parity_batch": 8}
 STEP_RTOL = 1e-4  # card vs CPU: cuDNN and the CPU sum in different orders
+# train_families: the train step of each family at STEP's batch and
+# classes, in f32 and in the JAX package's bf16 compute; each family's
+# f32 step at batch 8 without dropout, card against CPU, within STEP_RTOL.
+FAMILY_STEP = {"families": ["VGG16", "ResNet18", "ResNet50", "ViTBase", "ECTiedNet"],
+               "dtypes": ["float32", "bfloat16"], "iters": 5}
+# train_resume: ResNet18 on the train phase's JPEGs (PCA labels at one of
+# the runners' granularities, so its results.db rows are its own).
+RESUME = {"model": "ResNet18", "pca_n_classes": 4, "taps": 10}
 # Parameters of the JAX package's models at 1000 classes (jax.eval_shape of
 # visreps_tpu/models; tests/test_torch_port_models.py holds these numbers
 # to the JAX models' own counts on the CPU).
@@ -1364,6 +1395,226 @@ def phase_train_step():
         raise RuntimeError(f"train step on the card disagrees with the CPU: {rec['parity']}")
 
 
+def forward_flops(name: str, num_classes: int = 1000) -> float:
+    """FLOPs (2 × multiply-adds) of one forward of ``name`` on one 224 px
+    image: ``torch.utils.flop_counter`` over a forward on the meta device
+    (convolutions, matmuls and the attention products; norms, pooling and
+    activations are not counted)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from visreps_tpu_torch.models.zoo import MODEL_REGISTRY
+
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](num_classes=num_classes).eval()
+        x = torch.empty((1, 3, 224, 224))
+    with FlopCounterMode(display=False) as counter:
+        model(x)
+    return float(counter.get_total_flops())
+
+
+def _family_model(name: str, device: str, dropout: bool = True):
+    """``name`` at full width, 1000 classes, from seed 0 (dropout 0 when
+    ``dropout`` is False), on ``device``."""
+    import torch
+
+    from visreps_tpu_torch.models.zoo import MODEL_REGISTRY, init_model
+
+    if dropout or name not in ("VGG16", "ECTiedNet"):
+        return init_model(name, STEP["classes"], seed=0, device=device)
+    model = MODEL_REGISTRY[name](num_classes=STEP["classes"], dropout=0.0)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def bn_route_probe() -> str:
+    """Whether ``F.batch_norm`` on the card takes a bf16 input with bf16
+    affine parameters beside f32 running statistics (the JAX bf16 step's
+    dtypes): "accepted", or torch's message. The port's BatchNorm widens
+    the bf16 scale and bias to f32 for the call either way
+    (``models/layers.py``)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn((8, 4, 5, 5), device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(4, device="cuda", dtype=torch.bfloat16)
+    stats = (torch.zeros(4, device="cuda"), torch.ones(4, device="cuda"))
+    try:
+        F.batch_norm(x, *stats, w, torch.zeros_like(w), True, 0.1, 1e-5)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    return "accepted"
+
+
+def phase_train_families():
+    """The train step of each family (``train/trainer.train_step``, AdamW,
+    1000 classes, batch 256) in f32 and in bf16 compute: ms per step over
+    FAMILY_STEP's iterations after a warm-up, images/s, peak memory and
+    the bound (3 × forward FLOPs × batch over the card's f32 FMA or bf16
+    peak). Then each family's f32 step at batch 8 without dropout on
+    the card against the same step on the CPU."""
+    import torch
+
+    from visreps_tpu_torch.train.optim import Optimizer
+    from visreps_tpu_torch.train.trainer import train_step
+
+    cfg = _step_cfg()
+    emit({"phase": "train_families", "bn_bf16_affine_f32_stats": bn_route_probe()})
+    failures = []
+    for name in FAMILY_STEP["families"]:
+        flops = forward_flops(name)
+        for dtype_name in FAMILY_STEP["dtypes"]:
+            dtype = getattr(torch, dtype_name)
+            batch = STEP["batch"]  # every family fits (ViT-B f32 peaks at 37.7 GB)
+            model = _family_model(name, "cuda")
+            opt = Optimizer(model, cfg, 100)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            images = torch.randn((batch, 3, 224, 224), device="cuda", generator=gen)
+            labels = torch.arange(batch, device="cuda") % STEP["classes"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train_step(model, opt, images, labels, gen, 0, dtype)  # warm-up
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(FAMILY_STEP["iters"]):
+                loss, grad_norm = train_step(model, opt, images, labels, gen, 1 + i, dtype)
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop) / FAMILY_STEP["iters"]
+            peak = FMA_PEAK_OPS[dtype_name]
+            bound_ms = 1e3 * 3 * flops * batch / peak
+            f32_state = all(p.dtype == torch.float32 for p in model.parameters()) and all(
+                v.dtype == torch.float32 for s in opt.opt.state.values() for k, v in s.items()
+                if k != "step")
+            emit({"phase": "train_families", "model": name, "dtype": dtype_name, "batch": batch,
+                  "ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "forward_gflop_per_image": flops / 1e9, "bound_ms": bound_ms,
+                  "bound_share": bound_ms / ms, "bound_by": "operations",
+                  "bound_peak": f"{dtype_name} {peak / 1e12:g} TFLOP/s",
+                  "loss": loss.item(), "grad_norm": grad_norm.item(),
+                  "f32_params_and_state": f32_state})
+            if not (math.isfinite(loss.item()) and math.isfinite(grad_norm.item())):
+                failures.append(f"{name} {dtype_name}: non-finite loss or gradient norm")
+            if not f32_state:
+                failures.append(f"{name} {dtype_name}: parameters or optimizer state not f32")
+            del model, opt, images, labels, loss, grad_norm
+            torch.cuda.empty_cache()
+
+        b = STEP["parity_batch"]
+        x = torch.randn((b, 3, 224, 224), generator=torch.Generator().manual_seed(1))
+        y = torch.arange(b) % STEP["classes"]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = _family_model(name, dev, dropout=False)
+            o = Optimizer(m, cfg, 100)
+            lo, gn = train_step(m, o, x.to(dev), y.to(dev), None, 0)
+            out[dev] = (lo.item(), gn.item(),
+                        {k: v.cpu() for k, v in m.state_dict().items() if "running_" in k})
+            del m, o
+        (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+        stat_err = max([((s_gpu[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max()).item()
+                        for k in s_cpu] or [0.0])
+        parity = {"batch": b, "loss": [l_cpu, l_gpu], "grad_norm": [g_cpu, g_gpu],
+                  "bn_stats_max_rel_err": stat_err, "rtol": STEP_RTOL}
+        emit({"phase": "train_families", "model": name, "parity": parity})
+        if not (abs(l_gpu - l_cpu) <= STEP_RTOL * abs(l_cpu)
+                and abs(g_gpu - g_cpu) <= STEP_RTOL * abs(g_cpu) and stat_err <= STEP_RTOL):
+            failures.append(f"{name}: the card's f32 step disagrees with the CPU's: {parity}")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
+def phase_train_resume(meta: dict, tmp: Path, data: dict) -> dict:
+    """ResNet18 through ``Trainer`` (configs/train/base.json, PCA labels,
+    batch 256, AdamW) for 2 epochs with ``save_resume_state`` and
+    ``checkpoint_interval=1`` on the train phase's JPEGs; a second Trainer
+    from a copy of its directory with ``resume_from_epoch=1``, which must
+    start at epoch 2 with the saved optimizer state; its epoch-2 losses
+    beside the uninterrupted run's; then the NSD RSA eval of the resumed
+    run's epoch-2 checkpoint (``load_model_from=checkpoint``), with e2e's
+    checks. Every step's batch and model must be on the card."""
+    import torch
+
+    from visreps_tpu_torch.core.config import load_config
+    from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES
+    from visreps_tpu_torch.run import validate_config
+    from visreps_tpu_torch.train import trainer as trainer_mod
+
+    n_cls = RESUME["pca_n_classes"]
+    first_dir = tmp / "resume_first"
+
+    def cfg(checkpoint_dir, *extra):
+        return validate_config(load_config(str(ROOT / "configs/train/base.json"), [
+            "mode=train", "model_class=standard_model", f"model_name={RESUME['model']}",
+            "pretrained_dataset=none", "pca_labels=true", f"pca_n_classes={n_cls}",
+            f"batchsize={TRAIN['batch']}", f"num_epochs={TRAIN['epochs']}", "warmup_epochs=1",
+            "num_workers=16", "log_interval=1", "checkpoint_interval=1", "log_checkpoints=true",
+            f"checkpoint_dir={checkpoint_dir}", "save_resume_state=true",
+            *(f"{k}={v}" for k, v in data.items()), *extra]))
+
+    devices = []
+    step_fn = trainer_mod.train_step
+
+    def probe(model, optimizer, images, labels, *args, **kwargs):
+        devices.append(({images.device.type, labels.device.type},
+                        {p.device.type for p in model.parameters()}))
+        return step_fn(model, optimizer, images, labels, *args, **kwargs)
+
+    trainer_mod.train_step = probe
+    try:
+        t0 = time.perf_counter()
+        first = trainer_mod.Trainer(cfg(first_dir), device="cuda")
+        first.train()
+        first_s = time.perf_counter() - t0
+        run_dir = first_dir / f"cfg{n_cls}a"
+        resumed_dir = tmp / "resume_second"
+        shutil.copytree(first_dir, resumed_dir)
+        t0 = time.perf_counter()
+        second = trainer_mod.Trainer(cfg(resumed_dir, "resume_from_epoch=1"), device="cuda")
+        saved = torch.load(run_dir / "resume_epoch_1.pt", map_location="cpu", weights_only=True)
+        state = second.optimizer.named_state()
+        same_state = set(state) == set(saved["state"]) and all(
+            torch.equal(v.cpu(), saved["state"][n][k])
+            for n, entry in state.items() for k, v in entry.items())
+        second.train()
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.train_step = step_fn
+    steps = first.steps_per_epoch
+    if not all(b == {"cuda"} and p == {"cuda"} for b, p in devices):
+        raise RuntimeError("a train step ran with the batch or the model off the card")
+    if len(devices) != 3 * steps or len(second.history) != steps:
+        raise RuntimeError(f"{len(devices)} steps in the two runs, {len(second.history)} after "
+                           f"the resume; expected {3 * steps} and {steps}")
+    if (second.start_epoch, second.global_step) != (2, 2 * steps) or not same_state:
+        raise RuntimeError(f"the resume did not restore epoch 1's state: start_epoch "
+                           f"{second.start_epoch}, same optimizer state {same_state}")
+    losses = [h["loss"] for h in first.history + second.history]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    files = sorted(p.name for p in run_dir.iterdir())
+    emit({"phase": "train_resume", "model": RESUME["model"], "steps_per_epoch": steps,
+          "uninterrupted_epoch2_loss": [h["loss"] for h in first.history[steps:]],
+          "resumed_epoch2_loss": [h["loss"] for h in second.history],
+          "epoch1_loss": [h["loss"] for h in first.history[:steps]],
+          "resumed_start": [second.start_epoch, second.global_step],
+          "optimizer_state_restored": same_state, "files": files,
+          "first_run_s": first_s, "resumed_run_s": second_s})
+    del first, second
+    torch.cuda.empty_cache()
+    nodes = TORCHVISION_RETURN_NODES[RESUME["model"]]  # the eval's config names AlexNet's
+    return run_eval("train_resume_eval", meta, [
+        "load_model_from=checkpoint", f"cfg_id={n_cls}", f"checkpoint_dir={resumed_dir}",
+        f"checkpoint_model=checkpoint_epoch_{TRAIN['epochs']}.pth",
+        f"return_nodes={json.dumps(nodes)}"],
+        f"cfg_id = {n_cls} AND epoch = {TRAIN['epochs']}",
+        lambda cfg_id, epoch: cfg_id == n_cls and epoch == TRAIN["epochs"],
+        n_taps=RESUME["taps"])
+
+
 def phase_trace(meta: dict, tmp: Path, data: dict) -> dict:
     """``core/profiling.trace`` around the e2e eval (``run_eval``, with all
     its checks) and around 10 trainer steps (``run.main`` in train_step's
@@ -2407,7 +2658,9 @@ def main() -> int:
         rsa_runs = [phase_e2e(meta)]
         checkpoint_dir, train_data = phase_train(tmp)
         phase_train_step()
+        phase_train_families()
         rsa_runs.append(phase_e2e_ckpt(meta, checkpoint_dir))
+        rsa_runs.append(phase_train_resume(meta, tmp, train_data))
         phase_trace(meta, tmp, train_data)
         phase_runners(tmp, train_data)
         phase_decode(tmp)

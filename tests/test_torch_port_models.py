@@ -203,13 +203,23 @@ class TestFamilies:
             np.testing.assert_allclose(_nhwc(got), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
     def test_trainer_refuses_the_new_families(self, tmp_path):
+        """The trainer now takes every family: ResNet50 on a 4-image
+        ImageNet layout (PCA labels, 2 classes) builds with Bottleneck
+        blocks and a 2-class head, and one epoch gives a finite loss."""
+        from visreps_tpu_torch.benchmarks.fixture import write_imagenet_fixture
         from visreps_tpu_torch.core.config import Config
         from visreps_tpu_torch.train.trainer import Trainer
 
+        data = write_imagenet_fixture(tmp_path / "imagenet", 5, n_classes=2, pca_n_classes=2)
         cfg = Config({"seed": 1, "model_class": "standard_model", "model_name": "ResNet50",
-                      "dataset": "imagenet", "pca_labels": False})
-        with pytest.raises(NotImplementedError, match="Training remainder"):
-            Trainer(cfg, device="cpu")
+                      "dataset": "imagenet", "pca_labels": True, "pca_n_classes": 2,
+                      "batchsize": 4, "num_workers": 1, "optimizer": "sgd",
+                      "learning_rate": 1e-3, "num_epochs": 1, "data_augment": False, **data})
+        trainer = Trainer(cfg, device="cpu")
+        assert isinstance(trainer.model, ResNet) and trainer.model.block_cls is Bottleneck
+        assert trainer.model.fc.out_features == 2
+        loss, _ = trainer.train_epoch(1)
+        assert np.isfinite(loss) and len(trainer.history) == 1
 
 
 class TestCheckpoints:

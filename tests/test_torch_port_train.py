@@ -720,10 +720,14 @@ class TestCLI:
             trun.validate_config(load_config(REPO / "configs/eval/base.json", [
                 "mode=eval", f"checkpoint_dir={tmp_path}", "load_model_from=checkpoint"]))
         base = _train_cfg(Config, tiny_imagenet)
-        for extra, item in (({"resume_from_epoch": 2}, "Training remainder"),
-                            ({"train_compute_dtype": "bf16"}, "Training remainder")):
-            with pytest.raises(NotImplementedError, match=item):
-                ttrainer.Trainer(base.merge(extra), device="cpu")
+        # Resume acts under log_checkpoints only, as in the JAX package;
+        # bf16 compute is an option of the step; other dtypes are refused.
+        resumed = ttrainer.Trainer(base.merge({"resume_from_epoch": 2}), device="cpu")
+        assert (resumed.start_epoch, resumed.global_step) == (1, 0)
+        bf16 = ttrainer.Trainer(base.merge({"train_compute_dtype": "bf16"}), device="cpu")
+        assert bf16.compute_dtype == torch.bfloat16 and resumed.compute_dtype == torch.float32
+        with pytest.raises(ValueError, match="train_compute_dtype"):
+            ttrainer.Trainer(base.merge({"train_compute_dtype": "fp16"}), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 ttrainer.Trainer(base)

@@ -1,5 +1,5 @@
-"""Console printing, the training-metrics CSV and a phase timer (copy of
-``visreps_tpu/core/logging.py``; wandb is not ported)."""
+"""Console printing, the training-metrics CSV with an optional wandb
+sink, and a phase timer (copy of ``visreps_tpu/core/logging.py``)."""
 from __future__ import annotations
 
 import csv
@@ -35,9 +35,14 @@ def rprint(msg: str = "", style: str | None = None) -> None:
 
 
 class MetricsLogger:
-    """CSV + console training-metrics sink: ``training_metrics.csv`` in
-    the checkpoint directory, with the JAX package's (and the
-    reference's) columns. ``use_wandb`` only warns: wandb is not ported."""
+    """CSV + console (+ optional wandb) training-metrics sink:
+    ``training_metrics.csv`` in the checkpoint directory, with the JAX
+    package's (and the reference's) columns. With ``use_wandb`` it
+    imports wandb when constructed and calls ``wandb.init`` with the JAX
+    package's arguments (entity visreps, project = dataset, group
+    ``seed_{seed}``, name ``{model_name}_{model_class}``, the config);
+    ``log_metrics`` logs its keys and ``finish`` ends the run. A failure
+    (no wandb, offline) warns and turns wandb off."""
 
     FIELDS = ["epoch", "train_loss", "train_acc", "train_top5", "test_acc", "test_top5",
               "learning_rate"]
@@ -49,9 +54,23 @@ class MetricsLogger:
             self.metrics_file = os.path.join(checkpoint_dir, "training_metrics.csv")
             with open(self.metrics_file, "w", newline="") as f:
                 csv.DictWriter(f, fieldnames=self.FIELDS).writeheader()
-        if cfg.get("use_wandb", False):
-            rprint("use_wandb is not ported (ROADMAP.md, 'Training remainder'); "
-                   "metrics go to the CSV and the console only", style="warning")
+        self.use_wandb = bool(cfg.get("use_wandb", False))
+        self._wandb = None
+        if self.use_wandb:
+            try:
+                import wandb  # noqa: PLC0415
+
+                self._wandb = wandb
+                wandb.init(
+                    entity="visreps",
+                    project=cfg.get("dataset", "visreps_tpu"),
+                    group=f"seed_{cfg.get('seed')}",
+                    name=f"{cfg.get('model_name')}_{cfg.get('model_class')}",
+                    config=cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg),
+                )
+            except Exception as e:  # wandb is optional, and may be offline
+                rprint(f"W&B initialization failed: {e}", style="warning")
+                self.use_wandb = False
 
     def log_metrics(self, epoch: int, loss: float, metrics: dict) -> None:
         if self.metrics_file:
@@ -66,6 +85,18 @@ class MetricsLogger:
             }
             with open(self.metrics_file, "a", newline="") as f:
                 csv.DictWriter(f, fieldnames=self.FIELDS).writerow(row)
+        if self.use_wandb:
+            try:
+                log = {"epoch": epoch, "training/test-acc": metrics.get("test_acc")}
+                if "train_acc" in metrics:
+                    log["training/train-acc"] = metrics["train_acc"]
+                if not self.cfg.get("pca_labels"):
+                    for k in ("test_top5", "train_top5"):
+                        if k in metrics:
+                            log[f"training/{k.replace('_', '-')}"] = metrics[k]
+                self._wandb.log(log)
+            except Exception as e:
+                rprint(f"W&B logging failed: {e}", style="warning")
         status = f"Epoch [{epoch}/{self.cfg.get('num_epochs', '?')}]"
         if "test_acc" in metrics:
             status += f" Test Acc: {metrics['test_acc']:.2f}%"
@@ -74,6 +105,13 @@ class MetricsLogger:
         if "train_acc" in metrics:
             status += f" Train Acc: {metrics['train_acc']:.2f}%"
         rprint(status, style="info")
+
+    def finish(self) -> None:
+        if self.use_wandb:
+            try:
+                self._wandb.finish()
+            except Exception as e:
+                rprint(f"W&B finish failed: {e}", style="warning")
 
 
 class Timer:

@@ -137,6 +137,16 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
     return params, (stats or None)
 
 
+def flax_ndim(name: str, tensor: torch.Tensor) -> int:
+    """The rank the state entry ``name`` has in the Flax layout: the
+    tensor's own, except the query/key/value biases of a
+    ``self_attention`` module, which Flax keeps as (heads, head_dim)."""
+    *mod, leaf = name.split(".")
+    split_bias = (leaf == "bias" and len(mod) >= 2 and mod[-2] == "self_attention"
+                  and mod[-1] in _ATTENTION and mod[-1] != "out")
+    return 2 if split_bias else tensor.dim()
+
+
 def srp_from_jax(srp: SRPTransform, chunks_by_dim: Mapping[int, tuple]) -> None:
     """Load projection matrices into ``srp``'s cache, replacing what it
     would draw itself: ``{D: (chunk, ...)}`` with each chunk a float

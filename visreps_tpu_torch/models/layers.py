@@ -4,10 +4,20 @@
 ``nn.BatchNorm2d/1d`` already have the semantics the JAX package's
 ``TorchBatchNorm`` copies (momentum 0.1, eps 1e-5, normalise with the
 biased batch variance, update the running variance with the unbiased
-one). The one difference is a dense batch of one row in training mode:
-torch raises, the JAX package returns ``bias`` (x − mean = 0) and keeps
-the update finite with ``n / max(n − 1, 1)``. ``BatchNorm1d`` below does
-the same.
+one). ``BatchNorm2d`` / ``BatchNorm1d`` below add two cases:
+
+  * bfloat16 compute (``train_compute_dtype=bf16``): the input and the
+    affine parameters arrive as bf16 while the running statistics stay
+    float32, as in the JAX package's bf16 step. ``F.batch_norm`` refuses
+    bf16 affine parameters beside f32 statistics ("expected scalar type
+    BFloat16 but found Float"), so the bf16 scale and bias are widened to
+    f32 (exactly) for the call: statistics and normalisation in f32, the
+    output in bf16, the running statistics updated in f32. The JAX
+    package rounds the batch mean and variance to bf16 first; the two
+    differ by bf16 rounding only.
+  * a dense batch of one row in training mode: torch raises, the JAX
+    package returns ``bias`` (x − mean = 0) and keeps the update finite
+    with ``n / max(n − 1, 1)``.
 
 The initialisers draw from an explicit ``torch.Generator`` and follow
 the JAX package's families: Flax's defaults (lecun-normal truncated
@@ -72,10 +82,31 @@ def init_like_flax(model: nn.Module, gen: torch.Generator,
             mod.reset_parameters()
 
 
-class BatchNorm1d(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` that takes a training batch of one row as the
-    JAX package does: the output is ``bias``, the running mean moves
-    towards the row and the running variance decays towards 0."""
+class _BatchNorm:
+    """Mixin for ``nn.BatchNorm*d``: an input in another dtype than the
+    running statistics (bf16 compute) normalises with the affine
+    parameters widened to the statistics' dtype; see the module doc."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.running_mean.dtype:
+            return super().forward(x)
+        self._check_input_dim(x)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        dtype = self.running_mean.dtype
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight.to(dtype),
+                            self.bias.to(dtype), self.training, self.momentum, self.eps)
+
+
+class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that also takes bf16 input beside f32 statistics."""
+
+
+class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` that also takes bf16 input beside f32 statistics,
+    and a training batch of one row as the JAX package does: the output
+    is ``bias``, the running mean moves towards the row and the running
+    variance decays towards 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and x.dim() == 2 and x.shape[0] == 1):
@@ -98,7 +129,7 @@ class ConvBNReLU(nn.Module):
                  padding: int = 0, frozen_bn: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
         self.frozen_bn = frozen_bn
 
     def forward(self, x: torch.Tensor, name: str, tap: TapFn) -> torch.Tensor:
@@ -128,7 +159,9 @@ class DenseBNReLU(nn.Module):
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
     """Flax's dropout with the mask drawn from ``gen``: keep each element
-    with probability 1 − rate and scale kept ones by 1 / (1 − rate)."""
+    with probability 1 − rate and scale kept ones by 1 / (1 − rate). The
+    uniforms are float32 whatever ``x``'s dtype (a bf16 draw would move
+    the keep probability by up to 2⁻⁸)."""
     if rate == 0.0:
         return x
     if rate == 1.0:
@@ -136,5 +169,5 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.
     if gen is None:
         raise ValueError("training-mode dropout needs a torch.Generator (generator=...)")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype) < keep
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visreps_tpu_torch.models.layers import he_normal_fan_out_
+from visreps_tpu_torch.models.layers import BatchNorm2d, he_normal_fan_out_
 
 
 class ChannelLayerNorm(nn.LayerNorm):
@@ -36,7 +36,7 @@ def get_normalization(norm_type: str, features: int) -> nn.Module:
     statistics, as ``train`` does in the JAX package."""
     norm_type = (norm_type or "none").lower()
     if norm_type in ("batch", "batchnorm"):
-        return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(features, eps=1e-5, momentum=0.1)
     if norm_type in ("instance", "instancenorm"):
         return nn.GroupNorm(features, features, eps=1e-6)
     if norm_type in ("layer", "layernorm"):

@@ -4,8 +4,8 @@
 Taps as the reference's FeatureExtractor places them: ``conv1`` is the
 raw stem convolution (before BatchNorm), ``block{i}`` each residual
 block's post-ReLU output, ``fc1`` the logits. BatchNorm is
-``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5: the JAX package's
-``TorchBatchNorm``). Modules are named after the Flax ones
+``models/layers.BatchNorm2d`` (momentum 0.1, eps 1e-5: the JAX
+package's ``TorchBatchNorm``; bf16 input beside f32 statistics too). Modules are named after the Flax ones
 (``layer{s}_{b}.conv1``, ``…downsample_conv``, ``…downsample_bn``), so
 ``models/convert.params_from_jax`` maps them one to one.
 """
@@ -17,11 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visreps_tpu_torch.models.layers import init_like_flax
+from visreps_tpu_torch.models.layers import BatchNorm2d, init_like_flax
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+def _bn(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

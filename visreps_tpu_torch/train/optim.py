@@ -9,11 +9,17 @@ The JAX package's optax chain, step for step:
   * ``clip_by_global_norm`` over the trainable gradients: ``g`` where
     ‖g‖ < c, else ``g / ‖g‖ · c`` (``torch.nn.utils.clip_grad_norm_``
     divides by ‖g‖ + 1e-6 instead);
-  * adamw with weight decay on parameters with ndim > 1 only, adam, or
-    sgd with momentum 0.9;
+  * adamw with weight decay on parameters with ndim > 1 in the Flax
+    layout only (``models/convert.flax_ndim``: a ViT's query/key/value
+    biases are (heads, head_dim) there and decay), adam, or sgd with
+    momentum 0.9;
   * frozen layers (``trainable_mask``) are left out of the optimizer:
     no update, no decay, no state — optax's ``set_to_zero`` branch —
     while the reported gradient norm still spans every gradient.
+
+Its state goes out and comes back by parameter name (``named_state`` /
+``load_named_state``), the form ``train/checkpoint.py`` writes for a
+mid-training resume and maps the JAX package's optax state onto.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from visreps_tpu_torch.models.convert import flax_ndim
 
 
 def lr_at_epoch(cfg, completed_epochs: int) -> float:
@@ -71,14 +79,19 @@ class Optimizer:
         mask = dict(trainable_mask or {})
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
-        self.trainable = [p for name, p in named if mask.get(name.split(".")[0], True)]
+        self.trainable_names = [name for name, _ in named if mask.get(name.split(".")[0], True)]
+        by_name = dict(named)
+        self.trainable = [by_name[name] for name in self.trainable_names]
         self.all_trainable = len(self.trainable) == len(self.params)
-        name = cfg.optimizer.lower()
+        name = self.name = cfg.optimizer.lower()
         lr = self.table[0]
         if name == "adamw":
             wd = cfg.get("weight_decay", 0.0)
-            groups = [{"params": [p for p in self.trainable if p.ndim > 1], "weight_decay": wd},
-                      {"params": [p for p in self.trainable if p.ndim <= 1], "weight_decay": 0.0}]
+            decays = [flax_ndim(n, p) > 1 for n, p in zip(self.trainable_names, self.trainable)]
+            groups = [{"params": [p for p, d in zip(self.trainable, decays) if d],
+                       "weight_decay": wd},
+                      {"params": [p for p, d in zip(self.trainable, decays) if not d],
+                       "weight_decay": 0.0}]
             groups = [g for g in groups if g["params"]]
             self.opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         elif name == "adam":
@@ -87,6 +100,45 @@ class Optimizer:
             self.opt = torch.optim.SGD(self.trainable, lr=lr, momentum=0.9)
         else:
             raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
+
+    #: The per-parameter state entries of each optimizer.
+    STATE_KEYS = {"adamw": ("step", "exp_avg", "exp_avg_sq"),
+                  "adam": ("step", "exp_avg", "exp_avg_sq"),
+                  "sgd": ("momentum_buffer",)}
+
+    def named_state(self) -> dict[str, dict[str, torch.Tensor]]:
+        """{trainable parameter name: its state entries}; empty before the
+        first step."""
+        return {name: dict(self.opt.state[p]) for name, p in
+                zip(self.trainable_names, self.trainable) if p in self.opt.state}
+
+    def load_named_state(self, state: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Set the state of every trainable parameter from ``state`` (as
+        ``named_state`` gives it): exactly the trainable names, each with
+        this optimizer's entries in its parameter's shape. Moments go to
+        the parameter's device and dtype; Adam's ``step`` stays a float32
+        scalar on the CPU, where ``torch.optim`` keeps it."""
+        if set(state) != set(self.trainable_names):
+            missing = sorted(set(self.trainable_names) - set(state))
+            extra = sorted(set(state) - set(self.trainable_names))
+            raise ValueError(f"optimizer state does not match the trainable parameters: "
+                             f"missing {missing[:5]}, unexpected {extra[:5]}")
+        keys = self.STATE_KEYS[self.name]
+        for name, p in zip(self.trainable_names, self.trainable):
+            entry = state[name]
+            if set(entry) != set(keys):
+                raise ValueError(f"{name}: {self.name} state needs {keys}, got {sorted(entry)}")
+            loaded = {}
+            for key, value in entry.items():
+                value = torch.as_tensor(value)
+                if key == "step":
+                    loaded[key] = value.detach().to("cpu", torch.float32).reshape(())
+                elif value.shape != p.shape:
+                    raise ValueError(f"{name}.{key}: shape {tuple(value.shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                else:
+                    loaded[key] = value.detach().to(p.device, p.dtype).clone()
+            self.opt.state[p] = loaded
 
     def lr_at_step(self, step: int) -> float:
         return self.table[min(step // self.steps_per_epoch, self.num_epochs)]

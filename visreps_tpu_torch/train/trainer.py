@@ -4,13 +4,30 @@ Seeded setup, label-smoothed (0.1) cross-entropy, optional gradient
 clipping (the gradient norm is reported either way), top-1 / top-5 on
 both splits every ``log_interval`` epochs, a checkpoint every
 ``checkpoint_interval`` epochs (epoch 0 always, when ``log_checkpoints``
-is set), and an ETA line after the first epoch. The forward, backward
-and update run on the device; the host reads the loss and the gradient
-norm once per step. Evaluation rounds the images to bfloat16 and
-computes in float32, as the JAX package's eval step does.
+is set), and an ETA line after the first epoch. Every family of
+``models/zoo.MODEL_REGISTRY`` trains (``model_class=standard_model``,
+optionally from IMAGENET1K weights). The forward, backward and update
+run on the device; the host reads the loss and the gradient norm once
+per step. Evaluation rounds the images to bfloat16 and computes in
+float32, as the JAX package's eval step does.
+
+``train_compute_dtype=bf16`` is the JAX package's bf16 step, not
+``torch.autocast``: at the loss boundary every float32 parameter and the
+images are cast to bfloat16 (``torch.func.functional_call`` on bf16
+copies, so the gradients flow back through the casts to the float32
+masters), the logits are cast to float32 before the loss, and the
+optimizer state and the BatchNorm running statistics stay float32.
+
+Under ``log_checkpoints``, ``save_resume_state`` writes the optimizer
+state beside each checkpoint and ``resume_from_epoch=E`` restarts from
+epoch E's checkpoint and optimizer state (``train/checkpoint.py``; the
+JAX package's own files too) at epoch E + 1, step E × steps_per_epoch.
+As in the JAX package, a resumed run draws fresh dropout masks from the
+seed and its loaders start their shuffle orders again.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -41,15 +58,44 @@ def labels_to_device(labels, device: torch.device) -> torch.Tensor:
     return t
 
 
+#: ``train_compute_dtype`` values → the step's compute dtype.
+COMPUTE_DTYPES = {None: torch.float32, "f32": torch.float32, "float32": torch.float32,
+                  "bf16": torch.bfloat16}
+
+
+def compute_dtype_of(cfg) -> torch.dtype:
+    value = cfg.get("train_compute_dtype")
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f"train_compute_dtype={value!r}: use one of "
+                         f"{sorted(k for k in COMPUTE_DTYPES if k)} (or leave it unset)")
+    return COMPUTE_DTYPES[value]
+
+
+def forward_logits(model: nn.Module, images: torch.Tensor, generator: torch.Generator | None,
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The model's logits; in bf16, from bf16 copies of its float32
+    parameters and of the images (buffers untouched), differentiable
+    back to the float32 parameters."""
+    if compute_dtype == torch.float32:
+        return model(images, generator=generator)[0]
+    params = {name: p.to(compute_dtype) if p.dtype == torch.float32 else p
+              for name, p in model.named_parameters()}
+    logits, _ = torch.func.functional_call(model, params, (images.to(compute_dtype),),
+                                           {"generator": generator})
+    return logits
+
+
 def train_step(model: nn.Module, optimizer: Optimizer, images: torch.Tensor,
                labels: torch.Tensor, generator: torch.Generator | None,
-               global_step: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One update: train-mode forward (dropout masks from ``generator``),
-    loss, backward, the gradient norms and the optimizer step. Returns
-    (loss, pre-clip global gradient norm) as device tensors."""
+               global_step: int, compute_dtype: torch.dtype = torch.float32,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One update: train-mode forward in ``compute_dtype`` (dropout masks
+    from ``generator``), float32 loss, backward, the gradient norms and
+    the optimizer step. Returns (loss, pre-clip global gradient norm) as
+    device tensors."""
     model.train()
     optimizer.zero_grad()
-    logits, _ = model(images, generator=generator)
+    logits = forward_logits(model, images, generator, compute_dtype)
     loss = cross_entropy_loss(logits, labels)
     loss.backward()
     grad_norm = optimizer.step(global_step)
@@ -91,16 +137,7 @@ class Trainer:
 
     def _setup(self):
         cfg = self.cfg
-        if cfg.get("resume_from_epoch", 0) or cfg.get("save_resume_state"):
-            raise NotImplementedError("mid-training resume is not ported yet "
-                                      "(ROADMAP.md, 'Training remainder')")
-        if (cfg.get("model_class") == "standard_model"
-                and cfg.get("model_name", "AlexNet") != "AlexNet"):
-            raise NotImplementedError(f"training {cfg.model_name} is not ported yet "
-                                      "(ROADMAP.md, 'Training remainder')")
-        if cfg.get("train_compute_dtype") not in (None, "f32", "float32"):
-            raise NotImplementedError(f"train_compute_dtype={cfg.train_compute_dtype} is not "
-                                      "ported yet (ROADMAP.md, 'Training remainder')")
+        self.compute_dtype = compute_dtype_of(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # Device augmentation: the host loaders stay augment-free.
         self.device_augment = bool(cfg.get("device_augment", False))
@@ -122,10 +159,29 @@ class Trainer:
 
         self.checkpoint_dir = None
         self.cfg_dict = None
+        self.start_epoch = 1
         if cfg.get("log_checkpoints"):
             self.checkpoint_dir, self.cfg_dict = ckpt.setup_checkpoint_dir(cfg, self.model)
-            ckpt.save_checkpoint(self.checkpoint_dir, 0, self.model, {}, self.cfg_dict)
+            resume_epoch = cfg.get("resume_from_epoch", 0)
+            if resume_epoch:
+                self._resume(resume_epoch)
+            else:
+                ckpt.save_checkpoint(self.checkpoint_dir, 0, self.model, {}, self.cfg_dict)
         self.metrics_logger = MetricsLogger(cfg, self.checkpoint_dir)
+
+    def _resume(self, epoch: int) -> None:
+        """Epoch ``epoch``'s checkpoint (either package's) into the model,
+        its optimizer state if saved (else the optimizer starts afresh, as
+        in the JAX package), and the step and epoch counters after it."""
+        path = os.path.join(self.checkpoint_dir, f"checkpoint_epoch_{epoch}.pth")
+        loaded, _ = ckpt.load_checkpoint(path, device=self.device)
+        self.model.load_state_dict(loaded.state_dict())
+        state = ckpt.load_resume_state(self.checkpoint_dir, epoch, self.optimizer.name)
+        if state is not None:
+            self.optimizer.load_named_state(state)
+        self.global_step = epoch * self.steps_per_epoch
+        self.start_epoch = epoch + 1
+        rprint(f"Resumed from epoch {epoch} ({path})", style="success")
 
     def evaluate(self, split: str = "test"):
         # Tiny-ImageNet's loaders are keyed "val"
@@ -150,7 +206,7 @@ class Trainer:
                 images = augment_batch(images, self.generator)
             loss, grad_norm = train_step(self.model, self.optimizer, images,
                                          labels_to_device(batch[1], self.device),
-                                         self.generator, self.global_step)
+                                         self.generator, self.global_step, self.compute_dtype)
             self.global_step += 1
             n += 1
             loss, grad_norm = torch.stack([loss, grad_norm]).tolist()  # one host read
@@ -164,7 +220,7 @@ class Trainer:
     def train(self) -> nn.Module:
         start = time.time()
         cfg = self.cfg
-        for epoch in range(1, cfg.num_epochs + 1):
+        for epoch in range(self.start_epoch, cfg.num_epochs + 1):
             epoch_loss, epoch_metrics = self.train_epoch(epoch)
             metrics = {"epoch": epoch, "epoch_metrics": epoch_metrics}
 
@@ -181,6 +237,11 @@ class Trainer:
                 self.metrics_logger.log_metrics(epoch, epoch_loss, metrics)
 
             if self.checkpoint_dir and epoch % cfg.get("checkpoint_interval", 5) == 0:
+                opt_state = ({"optimizer": self.optimizer.name,
+                              "state": self.optimizer.named_state()}
+                             if cfg.get("save_resume_state") else None)
                 ckpt.save_checkpoint(self.checkpoint_dir, epoch, self.model, metrics,
-                                     self.cfg_dict)
+                                     self.cfg_dict, opt_state=opt_state)
+
+        self.metrics_logger.finish()
         return self.model
