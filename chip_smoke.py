@@ -41,6 +41,16 @@ non-zero without the final line:
      n_select 1000, 1000 bootstraps, Spearman, uint8 transfer, results.db.
      Checks results, db rows, finite scores, and that the kernel was
      launched exactly once per RDM the eval builds.
+  5a. retain — the e2e eval with ``acts_retain=true``: only the phase-1
+     plan's rows are kept (2,000 of 3,000). Its results must equal e2e's
+     bit for bit; prints the kept rows, the store's GB against the
+     unretained store's, the peak memory and the launches.
+  5b. procs — ``run.main(["--mode", "eval", "--procs", "2", ...])`` in
+     e2e's configuration: one worker process per subject on the card,
+     both writing a fresh results.db. The rows, read back through
+     ``explore_results``, must cover every (subject, region) and hold
+     e2e's layers and scores (largest difference printed; equal bits
+     expected); prints the wall and each worker's exit code.
   6. train — ``run.main(["--mode", "train", ...])`` with
      configs/train/base.json and PCA labels (CustomCNN at 224 px,
      pca_n_classes 32, AdamW, batch 256) on a synthetic on-disk ImageNet
@@ -133,17 +143,18 @@ non-zero without the final line:
      the CPU: its config, and logits within 1e-4 of the largest against
      each other and against the pickled module's own forward; then the
      e2e eval of it (``load_model_from=checkpoint``, cfg_id 64, epoch 20).
- 13. e2e_resnet50, e2e_vit, e2e_vgg16 — the e2e eval of ResNet50,
-     ViT-B/16 and VGG16 with ``pretrained_dataset=imagenet1k``: a seeded
+ 13. e2e_resnet50, e2e_vit — the e2e eval of ResNet50 and ViT-B/16
+     (VGG16's runs at 73,000 stimuli in 13f) with
+     ``pretrained_dataset=imagenet1k``: a seeded
      state dict in torchvision's layout, written under torchvision's file
      name into a temporary TORCH_WEIGHTS_DIR, is imported (the loaded
      model's first layer, a middle one and its head must equal the
-     file's: no random-init fallback). 18, 14 and 30 selection taps;
-     VGG16 at batch 128 (its 30 f32 taps at 256 would not fit beside its
+     file's: no random-init fallback). 18 and 14 selection taps (VGG16:
+     30, at batch 128: its 30 f32 taps at 256 would not fit beside its
      50 GB of SRP matrices). Rows carry cfg_id 'pretrained' and epoch −1.
      Each also prints the SRP matrices' size, the tap floats per image,
      the peak memory of extraction and of phase 2 with the exact layers'
-     widths and bytes.
+     widths, bytes and passes.
      Each eval phase prints its wall and phase times, extraction images/s
      with the loader's wait, the stimuli its loaders served by decode
      route, peak device memory, fixture seconds and the RDM shapes it
@@ -193,6 +204,24 @@ non-zero without the final line:
      (1e-5); Two-NN IDs of conv5_post and fc1_post (1e-4 relative) and a
      PLSSVD cross-decomposition against a planted response (1e-4), each
      card against CPU.
+ 13f. nsd73k_vgg16 — the NSD fixture at its default scale, cut to 2
+     regions (73,000 stimuli = 1,000 shared + 8 × 9,000 unique, 8
+     subjects, 512 voxels, a 14.35 GB uint8 brick, written after ``df``:
+     with under 30 GB free n_unique drops to 4,500, 37,000 stimuli), and
+     VGG16's eval on it as in 13 (8 subjects × 2 regions, batch 128) with
+     ``acts_retain`` at auto: the rule must retain (the plan's 8,000 rows
+     into the bf16 device store, against 17.94 GB unretained), with 13's
+     checks (16 results and rows, one launch per RDM) and a peak under
+     80 GB. Phase 2 extracts its selected layers in as many passes as
+     the card's free memory needs (``evals._exact_groups``).
+ 13g. nsd73k_encoding — untrained ResNet50's encoding eval (18 taps,
+     1000 bootstraps) on the same brick, 8 subjects × 2 regions, with
+     ``acts_store`` at auto: the rule must take the f32 host store
+     (1.03e10 bytes of bf16 store over the 9e9 budget); 16 results and
+     rows, finite scores and CIs, no RDM launch. Prints the host store's
+     GB, the host's resident memory before and its peak after (the
+     brick's mapped pages count), the encoding phases and the wall. The
+     brick is removed after it.
  14. path — the RDM shapes every RSA eval and cross_model called, with
      their launch counts and the kernel's time at each: its time on the
      main path, Σ launches × ms. A shape the kernel phase did not check
@@ -228,8 +257,9 @@ non-zero without the final line:
      encoding_cv_precision high and highest, without bootstrap; prints
      the layers each selects, the largest score difference and both
      times.
- 17. kernels — the per-kernel summary line (launches: the thirteen RSA
-     evals and cross_model; the encoding eval, the analyses and training
+ 17. kernels — the per-kernel summary line (launches: the fourteen RSA
+     evals run in this process and cross_model; the procs workers'
+     launches are theirs; the encoding evals, the analyses and training
      launch none).
 
 Then the card's name and power limit, and the final status line.
@@ -327,7 +357,7 @@ PRETRAINED = {
         ("conv_proj.weight", "conv_proj.weight"),
         ("encoder_layer_6.mlp_0.weight", "encoder.layers.encoder_layer_6.mlp.0.weight"),
         ("head.weight", "heads.head.weight")]},
-    "VGG16": {"phase": "e2e_vgg16", "taps": 30, "batch": 128, "seed": 13, "probes": [
+    "VGG16": {"phase": "nsd73k_vgg16", "taps": 30, "batch": 128, "seed": 13, "probes": [
         ("conv1.weight", "features.0.weight"),
         ("conv8.weight", "features.17.weight"),
         ("fc3.weight", "classifier.6.weight")]},
@@ -385,6 +415,21 @@ CORR_DIAG_TOL = 1e-6  # a self-pair's layer-with-itself Spearman: 1 up to f32 ro
 # columns with a rank-``rank`` signal.
 ANALYSES = {"nodes": ["conv5", "fc1", "fc2"], "batch": 128, "tol": 1e-5, "id_tol": 1e-4,
             "xdec_tol": 1e-4, "voxels": 500, "rank": 25}
+# procs: the e2e eval split over 2 worker processes (``--procs 2``) into a
+# fresh results.db; its rows against e2e's (each worker runs e2e's arithmetic
+# on its subjects: equal bits expected, a difference up to ``tol`` allowed
+# for f32 sums grouped over another set of pairs).
+PROCS = {"procs": 2, "tol": 1e-6}
+# nsd73k: the NSD fixture at its default scale (73,000 stimuli = 1,000 shared
+# + 8 × 9,000 unique, 8 subjects, 512 voxels, 256 px), cut to 2 regions.
+# VGG16 from a seeded file (RSA, acts_retain auto: its 73,000-row bf16 store
+# would be 17.94 GB, over the 9e9-byte budget), ResNet50 untrained (encoding,
+# acts_store auto: 1.03e10 bytes, the f32 host store). With under
+# ``min_free_gb`` free where the brick goes, n_unique is cut to ``cut_unique``
+# (37,000 stimuli, above the 36,622 where VGG16's store reaches the budget).
+NSD73K = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 8, "n_regions": 2,
+          "n_voxels": 512, "img_size": 256, "min_free_gb": 30, "cut_unique": 4500,
+          "device_gb": 80}
 
 
 def emit(obj) -> None:
@@ -750,25 +795,33 @@ def eval_record(phase: str, run: dict, n_images: int, fixture_s: float, **extra)
     return rec
 
 
+def rsa_overrides(source: list[str], subjects: list, regions: list, batch: int = 256,
+                  options: tuple = ()) -> list[str]:
+    """The NSD RSA eval's overrides (the e2e configuration) for a model
+    ``source``; ``options`` are applied last."""
+    return [
+        *source, "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
+        f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
+        "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
+        "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
+        f"batchsize={batch}", "num_workers=8", *options,
+    ]
+
+
 def run_eval(phase: str, meta: dict, source: list[str], db_where: str, expect_row,
              n_taps: int = 14, batch: int = 256, extra: dict | None = None,
-             options: tuple = ()):
+             options: tuple = (), subjects: list | None = None, regions: list | None = None):
     """The NSD RSA eval on the fixture (``drive``); checks results, db rows
     (``db_where`` selects this eval's; ``expect_row`` checks each row's
     (cfg_id, epoch)), ``n_taps`` selection scores per result, finite
     scores and one launch per RDM. ``options`` are overrides applied last
     (another compare_method, bootstrap_exact_ties, reconstruct_from_pcs).
     ``extra`` (filled while the eval runs) joins the printed line.
+    ``subjects`` and ``regions`` default to E2E's.
     Returns the run (``drive``'s dict)."""
-    subjects = list(range(E2E["n_subjects"]))
-    regions = NSD_REGIONS[: E2E["n_regions"]]
-    run = drive([
-        *source, "neural_dataset=nsd", "analysis=rsa", "compare_method=spearman",
-        f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
-        "bootstrap=true", "n_bootstrap=1000", "n_select=1000", "srp_k=4096",
-        "extract_pre_and_post=true", "uint8_transfer=true", "log_expdata=true",
-        f"batchsize={batch}", "num_workers=8", *options,
-    ])
+    subjects = list(range(E2E["n_subjects"])) if subjects is None else subjects
+    regions = NSD_REGIONS[: E2E["n_regions"]] if regions is None else regions
+    run = drive(rsa_overrides(source, subjects, regions, batch, options))
     results = run["results"]
     n_pairs = len(subjects) * len(regions)
     check_rsa_results(results, n_pairs, n_taps)
@@ -889,11 +942,15 @@ def phase_ref_ckpt(meta: dict, tmp: Path) -> dict:
         lambda cfg_id, ep: cfg_id == k and ep == epoch, extra={"load_check": check})
 
 
-def phase_pretrained(meta: dict, tmp: Path, name: str) -> dict:
+def phase_pretrained(meta: dict, tmp: Path, name: str, phase: str | None = None,
+                     subjects: list | None = None, regions: list | None = None,
+                     extra: dict | None = None) -> dict:
     """The e2e eval of ``name`` with ``pretrained_dataset=imagenet1k``,
     its weights from a seeded torchvision-layout file; checks that the
     import took the file's values, and records the memory of the
-    extraction and of phase 2."""
+    extraction and of phase 2. ``phase``, ``subjects`` and ``regions``
+    default to the spec's phase and E2E's pairs; ``extra`` joins the
+    printed line."""
     import torch
 
     from visreps_tpu_torch import evals
@@ -904,7 +961,7 @@ def phase_pretrained(meta: dict, tmp: Path, name: str) -> dict:
     t0 = time.perf_counter()
     path = write_torchvision_weights(tmp / "torch_weights", name, seed=spec["seed"])
     extra = {"model": name, "weight_file": path.name, "weight_file_mb": path.stat().st_size / 1e6,
-             "weight_file_s": time.perf_counter() - t0}
+             "weight_file_s": time.perf_counter() - t0, **(extra or {})}
     os.environ["TORCH_WEIGHTS_DIR"] = str(path.parent)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     want = {mine: sd[theirs].clone() for mine, theirs in spec["probes"]}
@@ -921,25 +978,32 @@ def phase_pretrained(meta: dict, tmp: Path, name: str) -> dict:
         return model
 
     def exact_probe(self, loader, layer_names, stimulus_ids=None):
-        dims = set(self.tap_dims.values())
-        extra.update({
-            "tap_floats_per_image": sum(self.tap_dims.values()),
-            "srp_matrices_gb": sum(2 * d * self.srp.out_dim(d) for d in dims) / 1e9,
-            "extraction_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "exact_layers": {l: self.tap_dims[l] for l in layer_names},
-            "exact_gb": sum(4 * len(loader.dataset) * self.tap_dims[l] for l in layer_names) / 1e9,
-            "centred_copy_gb": max(4 * len(loader.dataset) * self.tap_dims[l]
-                                   for l in layer_names) / 1e9})
-        torch.cuda.reset_peak_memory_stats()
+        """Phase 2's passes (one per group of layers): the extraction's peak
+        at the first, then the layers, GB and passes summed over all."""
+        if "extraction_peak_gb" not in extra:
+            dims = set(self.tap_dims.values())
+            extra.update({
+                "tap_floats_per_image": sum(self.tap_dims.values()),
+                "srp_matrices_gb": sum(2 * d * self.srp.out_dim(d) for d in dims) / 1e9,
+                "extraction_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "exact_layers": {}, "exact_gb": 0.0, "centred_copy_gb": 0.0,
+                "phase2_passes": 0})
+            torch.cuda.reset_peak_memory_stats()
+        gb = {l: 4 * len(loader.dataset) * self.tap_dims[l] / 1e9 for l in layer_names}
+        extra["exact_layers"].update({l: self.tap_dims[l] for l in layer_names})
+        extra["exact_gb"] += sum(gb.values())
+        extra["centred_copy_gb"] = max(extra["centred_copy_gb"], *gb.values())
+        extra["phase2_passes"] += 1
         return exact(self, loader, layer_names, stimulus_ids)
 
     evals.load_model, FeatureExtractor.extract_layers_exact = load, exact_probe
     try:
-        run = run_eval(spec["phase"], meta, [
+        run = run_eval(phase or spec["phase"], meta, [
             "load_model_from=torchvision", f"model_name={name}", "pretrained_dataset=imagenet1k"],
             f"cfg_id = 'pretrained' AND model_name = '{name}'",
             lambda cfg_id, epoch: cfg_id == "pretrained" and epoch == -1,
-            n_taps=spec["taps"], batch=spec["batch"], extra=extra)
+            n_taps=spec["taps"], batch=spec["batch"], extra=extra, subjects=subjects,
+            regions=regions)
     finally:
         evals.load_model, FeatureExtractor.extract_layers_exact = load_model, exact
         del os.environ["TORCH_WEIGHTS_DIR"]
@@ -958,6 +1022,243 @@ def host_peak_rss_gb() -> float:
 
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory now (GB)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+@contextmanager
+def store_probe():
+    """While in use, records the SRP store of each ``get_activations`` call:
+    its kind, whether rows were retained, the rows kept of the stimuli,
+    its GB, dtype and device, and the bf16 store of every stimulus (the
+    estimate the store rule reads)."""
+    from visreps_tpu_torch.models.extractor import FeatureExtractor
+
+    own = FeatureExtractor.get_activations
+    seen = {}
+
+    def probe(self, loader, store="device", retain_ids=None):
+        acts, ids = own(self, loader, store=store, retain_ids=retain_ids)
+        first = next(iter(acts.values()))
+        n = len(loader.dataset)
+        seen.update(store=store, retained=retain_ids is not None, rows=len(ids), n_stimuli=n,
+                    store_gb=sum(a.numel() * a.element_size() for a in acts.values()) / 1e9,
+                    dtype=str(first.dtype).removeprefix("torch."), device=first.device.type,
+                    out_dims_total=sum(self.out_dims().values()),
+                    full_bf16_store_gb=2 * n * sum(self.out_dims().values()) / 1e9)
+        return acts, ids
+
+    FeatureExtractor.get_activations = probe
+    try:
+        yield seen
+    finally:
+        FeatureExtractor.get_activations = own
+
+
+def phase_retain(meta: dict, e2e_run: dict) -> dict:
+    """The e2e eval with ``acts_retain=true``: only the phase-1 plan's rows
+    are kept (2 × 1,000 of 3,000). Its results must equal e2e's bit for
+    bit (layers, selection scores, scores, CIs, bootstrap arrays); with
+    e2e's checks."""
+    with store_probe() as store:
+        run = run_eval("retain", meta, E2E_SOURCE, "cfg_id = 'untrained'", untrained,
+                       options=("acts_retain=true",), extra={"store": store})
+    differing = [i for i, (r, e) in enumerate(zip(run["results"], e2e_run["results"]))
+                 if r != e]
+    rec = {"phase": "retain_check", "retained_rows": store["rows"],
+           "n_stimuli": store["n_stimuli"], "store_gb": store["store_gb"],
+           "unretained_store_gb": store["full_bf16_store_gb"], "peak_mem_gb": run["peak_mem_gb"],
+           "rdm_launches": run["launches"], "bit_equal_to_e2e": not differing,
+           "differing_results": differing}
+    emit(rec)
+    if not store["retained"] or store["store"] != "device" or store["rows"] >= store["n_stimuli"]:
+        raise RuntimeError(f"retain: acts_retain=true kept {store}")
+    if differing or len(run["results"]) != len(e2e_run["results"]):
+        raise RuntimeError(f"retain: results {differing} differ from e2e's")
+    return run
+
+
+def phase_procs(meta: dict, e2e_run: dict, tmp: Path) -> dict:
+    """``run.main(["--mode", "eval", "--procs", "2", ...])`` in e2e's
+    configuration: one worker process per subject on the card, both
+    writing a fresh results.db (WAL). The rows are read back through
+    ``explore_results``: every (subject, region) present, and e2e's layers
+    and scores (CIs and bootstrap arrays too) within PROCS["tol"]; prints
+    the wall, each worker's exit code and the largest difference. The
+    workers' RDM launches are theirs, not counted here."""
+    import types
+
+    import torch
+
+    from visreps_tpu_torch import explore_results, run
+
+    subjects, regions = list(range(E2E["n_subjects"])), NSD_REGIONS[: E2E["n_regions"]]
+    db = tmp / "procs.db"
+    argv = ["--mode", "eval", "--procs", str(PROCS["procs"]),
+            "--config", str(ROOT / "configs/eval/base.json"),
+            "--override", *rsa_overrides(E2E_SOURCE, subjects, regions)]
+    workers = []
+
+    def popen(*args, **kwargs):
+        workers.append(subprocess.Popen(*args, **kwargs))
+        return workers[-1]
+
+    saved = {k: os.environ.get(k) for k in ("VISREPS_RESULTS_DB", "PYTHONPATH")}
+    os.environ["VISREPS_RESULTS_DB"] = str(db)
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), saved["PYTHONPATH"]]))
+    run.subprocess = types.SimpleNamespace(Popen=popen)
+    torch.cuda.empty_cache()  # the workers share the card
+    try:
+        t0 = time.perf_counter()
+        rc = _cli_exit(run.main, argv)
+        wall = time.perf_counter() - t0
+    finally:
+        run.subprocess = subprocess
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rows = explore_results.run_sql(
+        "SELECT r.region, r.subject_idx, r.layer, r.score, r.ci_low, r.ci_high, b.scores "
+        "FROM results r JOIN bootstrap_distributions b "
+        "ON r.run_id = b.run_id AND r.compare_method = b.compare_method", db)
+    matrix = explore_results.completeness("nsd", "rsa", db)
+    missing = [(s, r) for r in regions for s in subjects
+               if not any(m["region"] == r and m["subject"] == str(s) and m["seed1"] == "x"
+                          for m in matrix)]
+    want = {(r, str(s)): res for (r, s), res in zip(
+        [(r, s) for r in regions for s in subjects], e2e_run["results"])}
+    layers_differ, diffs = [], [0.0]
+    for row in rows:
+        ref = want.get((row["region"], row["subject_idx"]))
+        if ref is None or ref["layer"] != row["layer"]:
+            layers_differ.append([row["region"], row["subject_idx"], row["layer"]])
+            continue
+        got = [row["score"], row["ci_low"], row["ci_high"], *json.loads(row["scores"])]
+        diffs.extend(abs(a - b) for a, b in zip(
+            got, [ref["score"], ref["ci_low"], ref["ci_high"], *ref["bootstrap_scores"]]))
+    rec = {"phase": "procs", "procs": PROCS["procs"], "seconds": wall, "rc": rc,
+           "worker_rcs": [w.returncode for w in workers], "db_rows": len(rows),
+           "missing_pairs": missing, "layers_differ": layers_differ,
+           "max_abs_diff_vs_e2e": max(diffs), "bit_equal_to_e2e": max(diffs) == 0.0,
+           "tol": PROCS["tol"], "summary": explore_results.summary(db)}
+    emit(rec)
+    if rc or len(workers) != PROCS["procs"] or any(w.returncode for w in workers):
+        raise RuntimeError(f"procs: exit code {rc}, workers {rec['worker_rcs']}")
+    if missing or layers_differ or len(rows) != len(want) or not max(diffs) <= PROCS["tol"]:
+        raise RuntimeError(f"procs: the sharded rows are not e2e's: {rec}")
+    return rec
+
+
+def nsd73k_fixture(tmp: Path) -> dict:
+    """The NSD fixture at NSD73K's scale under ``tmp`` (``df`` first: with
+    under NSD73K["min_free_gb"] free, n_unique is cut); points the NSD
+    loaders at it and returns its meta with the cut and the seconds."""
+    from visreps_tpu_torch.benchmarks import fixture
+
+    root = tmp / "nsd73k_fixture"
+    root.mkdir()
+    df = subprocess.run(["df", "-k", str(root)], capture_output=True, text=True, check=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    spec = {k: NSD73K[k] for k in ("n_shared", "n_unique", "n_subjects", "n_regions",
+                                   "n_voxels", "img_size")}
+    if free_gb < NSD73K["min_free_gb"]:
+        spec["n_unique"] = NSD73K["cut_unique"]
+    t0 = time.perf_counter()
+    meta = fixture.ensure_fixture(root, **spec)
+    meta["fixture_s"] = time.perf_counter() - t0
+    os.environ["NSD_DATA_DIR"] = str(Path(meta["pickle"]).parent)
+    os.environ["NSD_STIMULI_HDF5"] = meta["stimuli"]
+    emit({"phase": "nsd73k_fixture", "df": df.stdout.strip().splitlines()[-1],
+          "free_gb": free_gb, "n_unique": spec["n_unique"],
+          "n_unique_cut": spec["n_unique"] != NSD73K["n_unique"], "n_stimuli": meta["n_stimuli"],
+          "brick_gb": Path(meta["stimuli"]).stat().st_size / 1e9, "seconds": meta["fixture_s"]})
+    return meta
+
+
+def phase_nsd73k_vgg16(meta: dict, tmp: Path) -> dict:
+    """VGG16 (seeded torchvision-layout file, ``phase_pretrained``'s
+    checks) on the 73,000-stimulus fixture, 8 subjects × 2 regions, with
+    ``acts_retain`` at auto: the rule must retain (the plan's ≈ 8,000
+    rows) into the device store; 16 results and rows, finite scores, 1000
+    bootstraps, one launch per RDM, and a peak under the card's 80 GB."""
+    subjects = list(range(NSD73K["n_subjects"]))
+    regions = NSD_REGIONS[: NSD73K["n_regions"]]
+    with store_probe() as store:
+        run = phase_pretrained(meta, tmp, "VGG16", subjects=subjects, regions=regions,
+                               extra={"store": store})
+    rec = {"phase": "nsd73k_vgg16_check", "retained": store["retained"],
+           "retained_rows": store["rows"], "n_stimuli": store["n_stimuli"],
+           "store": store["store"], "store_gb": store["store_gb"],
+           "unretained_store_gb": store["full_bf16_store_gb"], "peak_mem_gb": run["peak_mem_gb"],
+           "device_gb": NSD73K["device_gb"], "rdm_launches": run["launches"]}
+    emit(rec)
+    if not store["retained"] or store["store"] != "device" or store["dtype"] != "bfloat16":
+        raise RuntimeError(f"nsd73k_vgg16: acts_retain=auto did not retain into the device "
+                           f"store: {store}")
+    if not run["peak_mem_gb"] < NSD73K["device_gb"]:
+        raise RuntimeError(f"nsd73k_vgg16 peaked at {run['peak_mem_gb']} GB")
+    return run
+
+
+def phase_nsd73k_encoding(meta: dict) -> None:
+    """The encoding eval of untrained ResNet50 (18 taps) on the
+    73,000-stimulus fixture, 8 subjects × 2 regions, ``acts_store`` at
+    auto: the rule must take the f32 host store; 16 results and rows, 18
+    selection scores and 1000 bootstraps each, finite scores and CIs, no
+    RDM launch. Prints the host store's GB, the host's resident memory
+    before and its peak after, the encoding phases and the wall."""
+    from visreps_tpu_torch import evals
+
+    subjects = list(range(NSD73K["n_subjects"]))
+    regions = NSD_REGIONS[: NSD73K["n_regions"]]
+    rss_before = host_rss_gb()
+    with store_probe() as store:
+        run = drive([
+            "load_model_from=torchvision", "model_name=ResNet50", "pretrained_dataset=none",
+            "neural_dataset=nsd", "analysis=encoding_score", "encoding_cv_precision=high",
+            f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
+            "bootstrap=true", "n_bootstrap=1000", "srp_k=4096", "extract_pre_and_post=true",
+            "uint8_transfer=true", "log_expdata=true", "batchsize=256", "num_workers=8"])
+    results = run["results"]
+    rows = db_rows("analysis = 'encoding_score' AND model_name = 'ResNet50'")
+    n_pairs = len(subjects) * len(regions)
+    problems = []
+    # the host store at 73,000 stimuli; under the n_unique cut the bf16 store fits
+    host = store.get("full_bf16_store_gb", 0) * 1e9 >= evals.STORE_BUDGET_BYTES
+    want = ("host", "float32", "cpu") if host else ("device", "bfloat16", "cuda")
+    if (store.get("store"), store.get("dtype"), store.get("device")) != want \
+            or store.get("retained"):
+        problems.append(f"store {store}: expected {want}, unretained")
+    if len(results) != n_pairs or len(rows) != n_pairs:
+        problems.append(f"{len(results)} results and {len(rows)} rows, expected {n_pairs}")
+    for r in results:
+        vals = [r["score"], r["ci_low"], r["ci_high"], *r["bootstrap_scores"]]
+        if len(r["layer_selection_scores"]) != 18 or len(r["bootstrap_scores"]) != 1000 \
+                or not all(math.isfinite(v) for v in vals) \
+                or not -1.0 <= r["ci_low"] <= r["ci_high"] <= 1.0:
+            problems.append(f"bad encoding result for {r['layer']}")
+    if run["launches"]:
+        problems.append(f"the encoding eval launched the RDM kernel {run['launches']} times")
+    phases = run["phases"]
+    emit({"phase": "nsd73k_encoding", "seconds": run["seconds"], "n_stimuli": meta["n_stimuli"],
+          "store": store, "host_store_gb": store.get("store_gb"),
+          "host_rss_before_gb": rss_before, "host_peak_rss_gb": host_peak_rss_gb(),
+          "images_per_s": meta["n_stimuli"] / phases["extraction_s"],
+          "phase_times_s": phases, "peak_mem_gb": run["peak_mem_gb"], "n_results": len(results),
+          "db_rows": len(rows), "rdm_launches": run["launches"],
+          "scores": [{"layer": r["layer"], "score": r["score"],
+                      "ci": [r["ci_low"], r["ci_high"]]} for r in results],
+          "problems": problems})
+    if problems:
+        raise RuntimeError("; ".join(problems))
 
 def phase_decode(tmp: Path) -> dict:
     """The C++ JPEG/PNG decoder where the script runs: whether it builds (with
@@ -2505,7 +2806,8 @@ def phase_encoding(tmp: Path) -> None:
         raise RuntimeError(f"{len(results)} encoding results, expected {n_pairs}")
     with sqlite3.connect(os.environ["VISREPS_RESULTS_DB"]) as conn:
         rows = conn.execute("SELECT region, subject_idx, layer, score, ci_low, ci_high "
-                            "FROM results WHERE analysis = 'encoding_score'").fetchall()
+                            "FROM results WHERE analysis = 'encoding_score' "
+                            "AND model_name = 'AlexNet'").fetchall()
     if len(rows) != n_pairs:
         raise RuntimeError(f"results.db has {len(rows)} encoding rows, expected {n_pairs}")
     for r in results:
@@ -2656,6 +2958,8 @@ def main() -> int:
     try:
         meta = nsd_fixture(tmp)
         rsa_runs = [phase_e2e(meta)]
+        rsa_runs.append(phase_retain(meta, rsa_runs[0]))
+        phase_procs(meta, rsa_runs[0], tmp)
         checkpoint_dir, train_data = phase_train(tmp)
         phase_train_step()
         phase_train_families()
@@ -2668,11 +2972,16 @@ def main() -> int:
         rsa_runs.append(phase_tvsd(tmp))
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
         rsa_runs.append(phase_ref_ckpt(meta, tmp))
-        rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in PRETRAINED)
+        # VGG16's eval runs at NSD's full 73,000 stimuli in nsd73k_vgg16 below
+        rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in ("ResNet50", "ViTBase"))
         rsa_runs.extend(phase(meta, rsa_runs[0])
                         for phase in (phase_kendall, phase_dense_boot, phase_pca))
         rsa_runs.append(phase_cross_model(tmp))
         phase_analyses(tmp, train_data)
+        meta73 = nsd73k_fixture(tmp)
+        rsa_runs.append(phase_nsd73k_vgg16(meta73, tmp))
+        phase_nsd73k_encoding(meta73)
+        shutil.rmtree(Path(meta73["stimuli"]).parent)
         phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
     finally:

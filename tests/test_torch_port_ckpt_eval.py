@@ -124,8 +124,8 @@ def both_evals(tmp_path_factory):
                 for d in set(ext.tap_dims.values())})
             own_get_activations = ext.get_activations
 
-            def select_on_jax_store(loader, store="device"):
-                acts, ids = own_get_activations(loader, store=store)
+            def select_on_jax_store(loader, store="device", retain_ids=None):
+                acts, ids = own_get_activations(loader, store=store, retain_ids=retain_ids)
                 stores["torch"] = ({n: a.float().cpu().numpy() for n, a in acts.items()}, ids)
                 jacts, jids = stores["jax"]
                 assert [str(i) for i in ids] == [str(i) for i in jids]

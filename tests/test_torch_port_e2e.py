@@ -137,8 +137,8 @@ def nsd_world(tmp_path_factory):
                 for d in set(ext.tap_dims.values())})
             own_get_activations = ext.get_activations
 
-            def select_on_jax_store(loader, store="device"):
-                acts, ids = own_get_activations(loader, store=store)
+            def select_on_jax_store(loader, store="device", retain_ids=None):
+                acts, ids = own_get_activations(loader, store=store, retain_ids=retain_ids)
                 stores["torch"] = ({n: a.float().cpu().numpy() for n, a in acts.items()}, ids)
                 jacts, jids = stores["jax"]
                 assert [str(i) for i in ids] == [str(i) for i in jids]
@@ -257,7 +257,8 @@ class TestStandalone:
             "'nn_ops', 'torch_import', 'hf_vit', 'pooling')} | {'visreps_tpu_torch.analysis.' + m "
             "for m in ('cross_model_rdms', 'extract_representations', 'compute_eigenspectra', "
             "'compute_twonn_id', 'cross_decomposition', 'metrics')} | "
-            "{'visreps_tpu_torch.benchmarks.weights', 'visreps_tpu_torch.ops.metrics'}\n"
+            "{'visreps_tpu_torch.benchmarks.weights', 'visreps_tpu_torch.ops.metrics', "
+            "'visreps_tpu_torch.explore_results', 'visreps_tpu_torch.config'}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu')]\n"

@@ -494,8 +494,8 @@ def both_evals(request, tmp_path_factory):
             ext = configure(cfg, model, device=device, verbose=verbose)
             own_get_activations = ext.get_activations
 
-            def select_on_jax_store(loader, store="device"):
-                acts, ids = own_get_activations(loader, store=store)
+            def select_on_jax_store(loader, store="device", retain_ids=None):
+                acts, ids = own_get_activations(loader, store=store, retain_ids=retain_ids)
                 stores["torch_store"] = store
                 jacts, jids = stores["jax"]
                 assert [str(i) for i in ids] == [str(i) for i in jids]

@@ -72,8 +72,8 @@ def things_world(tmp_path_factory, alexnet):  # noqa: F811
             ext = configure(cfg, model, device=device, verbose=verbose)
             own_get_activations = ext.get_activations
 
-            def select_on_jax_store(loader, store="device"):
-                acts, ids = own_get_activations(loader, store=store)
+            def select_on_jax_store(loader, store="device", retain_ids=None):
+                acts, ids = own_get_activations(loader, store=store, retain_ids=retain_ids)
                 jacts, _ = stores["jax"]
                 return {n: torch.from_numpy(jacts[n]).to(acts[n].device, acts[n].dtype)
                         for n in acts}, ids

@@ -130,8 +130,8 @@ def _select_on_jax_store(mp, stores):
         ext = configure(cfg, model, device=device, verbose=verbose)
         own_get_activations = ext.get_activations
 
-        def select_on_jax_store(loader, store="device"):
-            acts, ids = own_get_activations(loader, store=store)
+        def select_on_jax_store(loader, store="device", retain_ids=None):
+            acts, ids = own_get_activations(loader, store=store, retain_ids=retain_ids)
             jacts, jids = stores["jax"]
             assert [str(i) for i in ids] == [str(i) for i in jids]
             return {n: torch.from_numpy(jacts[n]).to(acts[n].device, acts[n].dtype)

@@ -5,7 +5,8 @@ a checkpoint (either package's, or the reference's torch-zip file), for
 the four datasets the paper scores against.
 
 NSD and TVSD share one multi-subject path. Every tap is extracted once
-into the SRP store, then either the encoding score (``analysis=
+into the SRP store (for RSA only phase 1's rows where the JAX package's
+rule retains, ``store_plan``), then either the encoding score (``analysis=
 encoding_score``: ridge regressions on every train row, batched per
 subject across regions and layers, refits grouped across subjects;
 ``analysis/encoding.py``, ``ops/ridge.py``) or the two-phase RSA:
@@ -14,8 +15,9 @@ subject across regions and layers, refits grouped across subjects;
     RDM best matches the neural RDM on a seed-42 subsample of
     ``n_select`` train stimuli;
   * phase 2 — exact (full-resolution) taps of the selected layers on the
-    shared test stimuli (with ``reconstruct_from_pcs``, rebuilt from their
-    top ``pca_k`` PCs), one RDM per unique layer;
+    shared test stimuli, in as many passes as the card's memory needs
+    (with ``reconstruct_from_pcs``, rebuilt from their top ``pca_k``
+    PCs), one RDM per unique layer;
   * scoring — per pair the point score of model vs neural RDM plus
     1000 × 90 % subsample bootstrap CIs, saved to results.db. Spearman
     is grouped over the pairs and average-tie exact; Kendall, Pearson
@@ -181,13 +183,42 @@ def _check_slice(cfg) -> None:
                                   "(ROADMAP.md, 'Remaining models')")
 
 
-def _store_kind(cfg, device: torch.device) -> str:
-    """Where the SRP store lives: ``acts_store``, by default the card
-    ("device", bf16) when there is one, else the host (f32)."""
+#: Bytes of bf16 SRP store above which ``acts_retain=auto`` retains and
+#: ``acts_store=auto`` takes the host (the JAX package's 9e9).
+STORE_BUDGET_BYTES = 9e9
+
+
+def store_plan(cfg, device_type: str, n_stimuli: int, out_dims_total: int,
+               retain_union: set | None = None) -> tuple[set | None, str]:
+    """The JAX package's retention and store rule
+    (``visreps_tpu/evals.py:238-262``, THINGS ``:318-331``): returns
+    (the stimulus ids to keep, or None for every row; "device" or "host").
+
+    ``retain_union`` is the RSA phase-1 plan's union (None for encoding
+    and THINGS, which never retain). ``acts_retain``: "auto" retains only
+    on the card when the whole bf16 store, 2 · n_stimuli ·
+    ``out_dims_total`` bytes, reaches the budget; a true value always
+    retains, a false one never; a retain set as large as the stimulus set
+    is no retention. ``acts_store``: "auto" takes the bf16 device store on
+    the card when the kept rows' store is positive and under the budget,
+    else the f32 host store.
+    """
+    retain = None
+    if retain_union is not None:
+        mode = cfg.get("acts_retain", "auto")
+        if mode == "auto":
+            if device_type == "cuda" and 2 * n_stimuli * out_dims_total >= STORE_BUDGET_BYTES:
+                retain = retain_union
+        elif mode:
+            retain = retain_union
+        if retain is not None and len(retain) >= n_stimuli:
+            retain = None
     store = cfg.get("acts_store", "auto")
     if store == "auto":
-        store = "device" if device.type == "cuda" else "host"
-    return store
+        n_store = len(retain) if retain is not None else n_stimuli
+        est = 2 * n_store * out_dims_total
+        store = "device" if device_type == "cuda" and 0 < est < STORE_BUDGET_BYTES else "host"
+    return retain, store
 
 
 def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
@@ -239,14 +270,27 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
 
     transform = get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False))
     dl = make_stimuli_loader(stimuli, transform, cfg.batchsize, cfg.get("num_workers", 16))
-    acts, ids = extractor.get_activations(dl, store=_store_kind(cfg, device))
+    # RSA's phase 1 reads only the plan's rows, so the plan comes first and
+    # extraction may keep just those; encoding needs every train row.
+    plan = union = None
+    if analysis == "rsa":
+        plan = _selection_plan(all_data["neural"], subjects, regions, stimuli,
+                               cfg.get("n_select", 1000))
+        union = set().union(*plan.values())
+    retain, store = store_plan(cfg, device.type, len(stimuli),
+                               sum(extractor.out_dims().values()), union)
+    acts, ids = extractor.get_activations(dl, store=store, retain_ids=retain)
     extractor.free_projection_cache()
     LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
     LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
     rprint("  Activations extracted once for all subjects/regions", style="success")
     if analysis == "encoding_score":
         return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
-    return _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose)
+    # Boxed, with this frame's name dropped, so that _eval_rsa's release
+    # after phase 1 frees the store before phase 2's exact taps.
+    acts_box = [acts]
+    del acts
+    return _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbose, plan)
 
 
 def _eval_things(cfg, verbose, device) -> List[Dict]:
@@ -262,7 +306,7 @@ def _eval_things(cfg, verbose, device) -> List[Dict]:
     rprint("  THINGS data loaded", style="success")
     LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
 
-    store = _store_kind(cfg, device)
+    _, store = store_plan(cfg, device.type, len(dl.dataset), sum(extractor.out_dims().values()))
     acts, ids = extractor.get_activations(dl, store=store)
     extractor.free_projection_cache()
     LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
@@ -333,6 +377,42 @@ def _model_rdms(cfg, exact: dict, layers) -> dict:
     return rdms
 
 
+def _exact_groups(extractor, layers, n_rows: int) -> list:
+    """``layers`` in groups, in order, whose f32 exact taps over ``n_rows``
+    stimuli fit half the card's free memory (the other half is for the
+    forward, the row gather and an RDM's centred copy); one group on the
+    CPU. VGG16's conv1-2 taps at 1,000 stimuli are 12.8 GB each, so the
+    13 layers a 16-pair eval can select do not fit one pass."""
+    if extractor.device.type != "cuda":
+        return [list(layers)]
+    dev = extractor.device
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    groups, size = [[]], 0
+    for layer in layers:
+        nbytes = 4 * n_rows * extractor.tap_dims[layer]
+        if groups[-1] and size + nbytes > free / 2:
+            groups.append([])
+            size = 0
+        groups[-1].append(layer)
+        size += nbytes
+    return groups
+
+
+def _exact_rdms(cfg, extractor, loader, layers, stimulus_ids) -> dict:
+    """One RDM per layer of ``layers``' exact taps over ``loader`` (rows in
+    ``stimulus_ids`` order): one loader pass per ``_exact_groups`` group,
+    each group's taps freed as its RDMs are built."""
+    groups = _exact_groups(extractor, layers, len(loader.dataset))
+    if len(groups) > 1:
+        rprint(f"  {len(layers)} layers in {len(groups)} passes (device memory)", style="info")
+    rdms = {}
+    for group in groups:
+        exact, _ = extractor.extract_layers_exact(loader, group, stimulus_ids)
+        rdms.update(_model_rdms(cfg, exact, group))
+    return rdms
+
+
 def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_test: int):
     """Point scores and bootstraps of every (region, subject) pair:
     ({pair: (B,) bootstrap scores} or None without a bootstrap, {pair:
@@ -366,8 +446,12 @@ def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_t
     return boot_of, dict(zip(pairs, points))
 
 
-def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -> List[Dict]:
-    """Two-phase RSA over the extracted SRP store ``acts``."""
+def _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbose,
+              plan) -> List[Dict]:
+    """Two-phase RSA over the extracted SRP store, boxed in the
+    one-element list ``acts_box`` (emptied here, so the store is freed
+    after phase 1), whose rows ``ids`` hold at least ``plan``'s."""
+    acts = acts_box.pop()
     method = cfg.get("compare_method", "spearman").lower()
     exact_sel = bool(cfg.get("selection_exact_ties", False))
     neural = all_data["neural"]
@@ -376,7 +460,10 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
     device = extractor.device
     tap_names = list(acts)
     id_pos = {str(k): i for i, k in enumerate(ids)}
-    plan = _selection_plan(neural, subjects, regions, stimuli, cfg.get("n_select", 1000))
+    missing = [k for sel in plan.values() for k in sel if k not in id_pos]
+    if missing:
+        raise RuntimeError(f"{len(missing)} planned selection stimuli missing from the "
+                           f"extraction output (e.g. {missing[:3]})")
 
     # ── Phase 1: per-(region, subject) layer selection (SRP) ──
     t0 = time.perf_counter()
@@ -422,10 +509,9 @@ def _eval_rsa(cfg, extractor, acts, ids, all_data, subjects, regions, verbose) -
     test_stimuli = {sid: stimuli[sid] for sid in shared_test_ids if sid in stimuli}
     dl_test = make_stimuli_loader(test_stimuli, get_transform("imgnet"),
                                   min(int(cfg.batchsize), 256), cfg.get("num_workers", 16))
-    rprint(f"  Re-extracting {len(unique_layers)} unique layers (one pass) over "
+    rprint(f"  Re-extracting {len(unique_layers)} unique layers over "
            f"{len(test_stimuli)} test stimuli...", style="info")
-    exact, _ = extractor.extract_layers_exact(dl_test, unique_layers, shared_test_ids)
-    model_rdms = _model_rdms(cfg, exact, unique_layers)
+    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, shared_test_ids)
     _sync(device)  # bill the queued RDM launches to phase 2
     LAST_PHASE_TIMES["phase2_extract_s"] = time.perf_counter() - t0
 
@@ -530,11 +616,10 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dic
     LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
 
     unique_layers = sorted({l for rl in best.values() for l in rl.values()})
-    rprint(f"  Extracting {len(unique_layers)} unique layers (one pass)...", style="info")
+    rprint(f"  Extracting {len(unique_layers)} unique layers...", style="info")
     dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"), cfg.batchsize,
                                   cfg.get("num_workers", 16))
-    exact, _ = extractor.extract_layers_exact(dl_test, unique_layers, test_ids)
-    model_rdms = _model_rdms(cfg, exact, unique_layers)
+    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, test_ids)
     _sync(device)
     LAST_PHASE_TIMES["phase2_extract_s"] = timer.mark("phase2_extract")
 

@@ -124,24 +124,29 @@ class FeatureExtractor:
         raise KeyError(f"Layer {layer!r} not among extraction points {self.points}")
 
     @torch.inference_mode()
-    def get_activations(self, loader: Iterable, store: str = "device"):
+    def get_activations(self, loader: Iterable, store: str = "device", retain_ids=None):
         """All-tap SRP activations over a loader of (batch, keys).
 
         store="device": {name: (N, k) bfloat16 tensor on the device} —
         the 73k × 14 × 4096 NSD store is ≈ 8.4 GB, resident on an 80 GB
         card. store="host": {name: (N, k) float32 CPU tensor}.
+        retain_ids: a set of stimulus ids (str) to keep. Every stimulus
+        still goes through the all-tap forward and SRP (a batch with no
+        kept row too); only the kept rows are written, in loader order,
+        into a store of len(retain_ids) rows, at positions counted on the
+        host: no per-batch synchronisation on the device store, and no
+        concatenation on either.
         Returns (acts, ids) with row i of every tap belonging to ids[i].
         """
         if store not in ("device", "host"):
             raise ValueError(f"store must be 'device' or 'host', got {store!r}")
         n_total = len(loader.dataset)
+        n_rows = n_total if retain_ids is None else len(retain_ids)
         dims = self.out_dims()
-        if store == "device":
-            acts = {name: torch.empty((n_total, k), dtype=torch.bfloat16, device=self.device)
-                    for name, k in dims.items()}
-        else:
-            parts: dict[str, list] = {name: [] for name in dims}
+        dtype, on = (torch.bfloat16, self.device) if store == "device" else (torch.float32, "cpu")
+        acts = {name: torch.empty((n_rows, k), dtype=dtype, device=on) for name, k in dims.items()}
         ids: list = []
+        n_seen = 0
         loader_s = 0.0
         batches = _batches(loader)
         while True:
@@ -151,23 +156,34 @@ class FeatureExtractor:
             if item is None:
                 break
             x, keys = item
+            n_seen += len(keys)
+            kept = None  # every row of the batch
+            if retain_ids is not None:
+                kept = [i for i, k in enumerate(keys) if str(k) in retain_ids]
+                if len(kept) == len(keys):
+                    kept = None
+                else:
+                    rows = torch.as_tensor(kept, dtype=torch.long)
+                    if store == "device" and self.device.type == "cuda":
+                        rows = rows.pin_memory().to(self.device, non_blocking=True)
             taps = self._taps(x, self.points)
-            b = len(keys)
+            pos = len(ids)
+            m = len(keys) if kept is None else len(kept)
             for p in self.points:
                 out = self.srp(_flatten_hwc(taps.pop(p)))
-                if store == "device":
-                    acts[self.alias[p]][len(ids):len(ids) + b] = out
-                else:
-                    parts[self.alias[p]].append(out.cpu())
-            ids.extend(keys)
-        if len(ids) != n_total:
-            raise RuntimeError(f"loader yielded {len(ids)} stimuli, expected {n_total}")
-        if store == "host":
-            acts = {name: torch.cat(p) for name, p in parts.items()}
-        elif self.device.type == "cuda":
+                if kept is not None:
+                    out = out.index_select(0, rows) if store == "device" else out.cpu()[rows]
+                acts[self.alias[p]][pos:pos + m] = out
+            ids.extend(keys if kept is None else [keys[i] for i in kept])
+        if n_seen != n_total:
+            raise RuntimeError(f"loader yielded {n_seen} stimuli, expected {n_total}")
+        if len(ids) < n_rows:
+            acts = {name: a[:len(ids)] for name, a in acts.items()}
+        if store == "device" and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_extract_times = {"loader_s": loader_s}
-        rprint(f"  SRP activations: {len(acts)} taps x {len(ids)} stimuli ({store})",
+        kept_msg = "" if retain_ids is None else f" kept of {n_total}"
+        rprint(f"  SRP activations: {len(acts)} taps x {len(ids)} stimuli{kept_msg} ({store})",
                style="success")
         return acts, ids
 
@@ -179,7 +195,8 @@ class FeatureExtractor:
         in ``stimulus_ids`` order when given (ids absent from the loader
         are dropped with a warning). Where the kept rows are already the
         loader's first rows in order, each layer is a view of its store;
-        otherwise the rows are gathered.
+        otherwise the rows are gathered, one tap at a time (each store is
+        released as its gathered copy is made).
         """
         point_of = {name: self._point_of(name) for name in layer_names}
         points = tuple(dict.fromkeys(point_of.values()))
@@ -208,7 +225,9 @@ class FeatureExtractor:
             acts = {name: store[p][:len(all_ids)] for name, p in point_of.items()}
         else:
             rows = torch.as_tensor(keep, device=self.device)
-            acts = {name: store[p][rows] for name, p in point_of.items()}
+            for p in points:
+                store[p] = store[p][rows]
+            acts = {name: store[p] for name, p in point_of.items()}
         del store
         rprint(f"  Re-extracted {len(acts)} layers in one pass "
                f"({len(all_ids)} stimuli, exact, no SRP)", style="success")

@@ -1,5 +1,5 @@
 """CLI: python -m visreps_tpu_torch.run --mode train|eval [--config PATH]
-[--override k=v ...] [--device cpu]
+[--override k=v ...] [--device cpu] [--procs K]
 
 Reads the same JSON configs as ``python -m visreps_tpu.run`` (default
 ``configs/{mode}/base.json``) and trains (``--mode train``) or runs an
@@ -7,10 +7,21 @@ eval (``--mode eval``: ``neural_dataset`` nsd, tvsd, things-behavior or
 nsd_synthetic; ``analysis=rsa``, or ``analysis=encoding_score`` on nsd
 and tvsd) on the card, or on the CPU with ``--device cpu``. Validation
 covers what this port runs.
+
+``--procs K`` splits a multi-subject eval's subjects over K worker
+processes (``subjects[i::K]``), each this CLI with ``--procs 1``, all
+writing one WAL results.db. Workers retain phase-1 rows
+(``acts_retain=true``, first, so a user's override wins) and intersect
+the shared test ids over the full subject list
+(``shared_test_subjects``), so their rows are the single process's. The
+parent validates the config and waits; it never touches the card.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 from visreps_tpu_torch.core.config import Config, load_config
@@ -127,6 +138,44 @@ def _validate_eval(cfg: Config) -> Config:
     return cfg
 
 
+def _shard_worker_argvs(args, cfg) -> list[list[str]] | None:
+    """argv of each subject-shard worker, or None where sharding does not
+    apply (``--procs`` 1, train mode, or a single subject)."""
+    if args.procs <= 1 or args.mode != "eval":
+        return None
+    subjects = cfg.get("subject_idx")
+    if not isinstance(subjects, list) or len(subjects) <= 1:
+        return None
+    n = min(args.procs, len(subjects))
+    full = json.dumps(list(cfg.get("shared_test_subjects") or subjects), separators=(",", ":"))
+    argvs = []
+    for i in range(n):
+        shard = json.dumps(subjects[i::n], separators=(",", ":"))
+        overrides = ["acts_retain=true", *args.override, f"subject_idx={shard}",
+                     f"shared_test_subjects={full}"]
+        argv = ["--mode", "eval", "--procs", "1", "--override", *overrides]
+        if args.config:
+            argv += ["--config", args.config]
+        if args.verbose:
+            argv += ["--verbose"]
+        if args.device:
+            argv += ["--device", args.device]
+        argvs.append(argv)
+    return argvs
+
+
+def _run_sharded(argvs: list[list[str]]) -> int:
+    """Start every worker, wait for all; 1 if any failed, else 0."""
+    procs = [subprocess.Popen([sys.executable, "-m", "visreps_tpu_torch.run", *a])
+             for a in argvs]
+    rc = 0
+    for a, p in zip(argvs, procs):
+        if p.wait() != 0:
+            print(f"subject-shard worker failed (rc={p.returncode}): {a}", file=sys.stderr)
+            rc = 1
+    return rc
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="visreps PyTorch/CUDA port")
     parser.add_argument("--mode", choices=["train", "eval"], default="eval")
@@ -135,6 +184,9 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="'cpu' to run on the CPU; default is the CUDA card")
     parser.add_argument("--verbose", "-v", action="store_true")
+    parser.add_argument("--procs", type=int, default=1,
+                        help="split an eval's subjects over K worker processes "
+                             "(one shared results.db)")
     args = parser.parse_args(argv)
 
     overrides = list(args.override)
@@ -142,6 +194,10 @@ def main(argv=None):
         overrides.append("verbose=true")
     overrides.append(f"mode={args.mode}")
     cfg = validate_config(load_config(args.config or f"configs/{args.mode}/base.json", overrides))
+
+    worker_argvs = _shard_worker_argvs(args, cfg)
+    if worker_argvs:
+        raise SystemExit(_run_sharded(worker_argvs))
 
     if cfg.mode == "train":
         from visreps_tpu_torch.train.trainer import Trainer
