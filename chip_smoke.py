@@ -222,7 +222,8 @@ non-zero without the final line:
      GB, the host's resident memory before and its peak after (the
      brick's mapped pages count), the encoding phases and the wall. The
      brick is removed after it.
- 14. path — the RDM shapes every RSA eval and cross_model called, with
+ 14. path (run after 15b) — the RDM shapes every RSA eval, cross_model
+     and curriculum_nsd_rsa called, with
      their launch counts and the kernel's time at each: its time on the
      main path, Σ launches × ms. A shape the kernel phase did not check
      gets the kernel phase's checks here before it is timed, beside the
@@ -257,10 +258,42 @@ non-zero without the final line:
      encoding_cv_precision high and highest, without bootstrap; prints
      the layers each selects, the largest score difference and both
      times.
- 17. kernels — the per-kernel summary line (launches: the fourteen RSA
-     evals run in this process and cross_model; the procs workers'
-     launches are theirs; the encoding evals, the analyses and training
-     launch none).
+ 15a. coarsegrain — the PCA-label pipeline through its CLIs at full
+     width (``visreps_tpu_torch/scripts/``): a synthetic ImageNet of
+     10,240 256 px JPEGs over 32 classes; AlexNet ``fc2_post`` (10,240 ×
+     4096 f32) with seeded IMAGENET1K-layout weights, card against the
+     CPU on the first 8 images; the top-20 PCs on the card against an f64
+     CPU fit of the same .npz (eigenvalues within 1e-4 relative, largest
+     principal angle within 1e-2 rad); labels for 2–64 classes, nested
+     (the n-bit label shifted right by one is the (n−1)-bit one), each
+     bit above its median for exactly half the images, and card = CPU
+     except rows within the card-vs-CPU roundoff of a median (counted);
+     CustomCNN trained on the 64-class CSV through ``run.main`` (20 steps
+     at batch 256, finite losses, epoch 0 and 1 checkpoints) and that
+     checkpoint's NSD RSA eval with e2e's checks (cfg_id 64, epoch 1);
+     ViT-B (``--backend flax``, seeded file), CLIP-L/14 and DINOv2-L/14
+     (seeded init) over 1,024 images, each card against CPU on the first
+     4 within MODEL_TOL. Prints each step's seconds, images/s, peak memory
+     and the eval's launches.
+ 15b. cg_benefits — the coarse-grain-benefit CLIs
+     (``visreps_tpu_torch/experiments/coarse_grain_benefits/``) on that
+     checkpoint: linear probe, few-shot (1 and 5 shots, 20 episodes),
+     class selectivity and augmentation invariance on a seeded
+     Tiny-ImageNet tree (200 classes × (20 + 10) at 64 px); ImageNet-C
+     robustness (15 corruptions at severity 3, 1,000 images at 224 px,
+     the torch L-BFGS logistic probe), with the 6 deterministic
+     corruptions card against CPU within 1e-3 on the 0–255 scale and each
+     corruption's ms on 64 images; curriculum fine-tuning 64 → 1000
+     (late_layers, 22 steps at batch 384); curriculum NSD RSA of the
+     64-way, the fine-tuned and the untrained (epoch 0) checkpoints × e2e's
+     2 subjects × 2 regions × 7 layers: 84 finite rows and one RDM launch
+     per RDM (96). Few-shot and ImageNet-C clean accuracy must beat
+     chance; the linear probe is held to finite (its contiguous CV folds
+     of class-sorted rows pick the largest alpha, in both packages).
+ 17. kernels — the per-kernel summary line (launches: the fifteen RSA
+     evals run in this process, cross_model and curriculum_nsd_rsa; the
+     procs workers' launches are theirs; the encoding evals, the
+     analyses, the PCA pipeline and training launch none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
@@ -431,8 +464,42 @@ NSD73K = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 8, "n_regions": 2,
           "n_voxels": 512, "img_size": 256, "min_free_gb": 30, "cut_unique": 4500,
           "device_gb": 80}
 
+# coarsegrain: the PCA-label pipeline on a synthetic ImageNet of ``n_images``
+# 256 px JPEGs (32 classes): AlexNet fc2_post from a seeded IMAGENET1K-layout
+# file, the top_k PCs on the card against an f64 CPU fit of the same features
+# (eigenvalues within ``eig_rtol`` relative, the largest principal angle of the
+# two top_k subspaces within ``angle_tol`` radians: CPU float32 against float64
+# at 2,048 images gave 6.9e-6 and 1.1e-3), ``max_bits`` of labels, CustomCNN
+# trained on the 64-class CSV (``train_fraction`` of the train split: 20 steps
+# at ``batch``) and its NSD RSA eval; ViT-B (seeded file), CLIP-L/14 and
+# DINOv2-L/14 (seeded init) on a second tree of ``tower_images``; each model's
+# card features against its CPU forward on the first ``check_rows`` images
+# (``tower_check_rows`` for the towers) within MODEL_TOL.
+COARSEGRAIN = {"n_images": 10240, "tower_images": 1024, "top_k": 20, "max_bits": 6,
+               "batch": 256, "train_fraction": 0.625, "train_steps": 20, "alexnet_seed": 21,
+               "vit_seed": 22, "check_rows": 8, "tower_check_rows": 4, "eig_rtol": 1e-4,
+               "angle_tol": 1e-2}
+# cg_benefits: a seeded Tiny-ImageNet tree (``classes`` × (n_train + n_val) at
+# 64 px) for the probes; ImageNet-C on ``imc_images`` of its train images at
+# 224 px; the deterministic corruptions on ``corrupt_check`` images, card
+# against CPU within ``corrupt_tol`` on the 0–255 scale; curriculum
+# fine-tuning 64 → 1000 (late_layers, 1 epoch at ``finetune_batch``: 22 steps
+# on the coarsegrain ImageNet); curriculum NSD RSA on e2e's subjects.
+CG_BENEFITS = {"classes": 200, "n_train": 20, "n_val": 10, "k_shot": [1, 5], "episodes": 20,
+               "imc_images": 1000, "corrupt_check": 64, "corrupt_tol": 1e-3,
+               "deterministic": ["brightness", "contrast", "pixelate", "defocus_blur",
+                                 "zoom_blur", "jpeg_compression"],
+               "finetune_batch": 384}
+
+
+START = time.perf_counter()
+
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2940,6 +3007,397 @@ def phase_encoding_check() -> None:
         raise RuntimeError("; ".join(failures))
 
 
+@contextmanager
+def environ(**values):
+    """Set environment variables for the block; restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def timed(fn, *args, **kwargs):
+    """(fn's result, seconds), the card synchronised at the end."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def nsd_env(meta: dict) -> dict:
+    """The environment that points the NSD loaders at ``meta``'s fixture
+    (later phases point them at their own)."""
+    return {"NSD_DATA_DIR": Path(meta["pickle"]).parent, "NSD_STIMULI_HDF5": meta["stimuli"]}
+
+
+def first_images(n: int):
+    """The first ``n`` images of the ImageNet the environment names, in the
+    extraction scripts' order and transform."""
+    from visreps_tpu_torch.scripts.extract_representations.utils import iterate_imagenet
+
+    loader, _ = iterate_imagenet(batch_size=n)
+    return next(iter(loader))[0]
+
+
+def card_vs_cpu(name: str, card_rows, build, images) -> dict:
+    """Max |card − CPU| over the CPU's largest |value| for the first rows:
+    ``build(device)`` makes the extraction function on that device."""
+    import torch
+
+    want = torch.as_tensor(build(torch.device("cpu"))(images)).float()
+    got = torch.as_tensor(card_rows[:len(images)]).float()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    if not err <= MODEL_TOL:
+        raise RuntimeError(f"{name}: card features differ from the CPU's by {err} > {MODEL_TOL}")
+    return {"card_vs_cpu_rel_err": err, "tol": MODEL_TOL, "rows_checked": len(images)}
+
+
+def f64_fit(features, k: int):
+    """Top-k eigenvalues and eigenvectors of the features' covariance in
+    float64 on the CPU, and the total variance."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(features).to(torch.float64)
+    xc = x - x.mean(dim=0)
+    vals, vecs = torch.linalg.eigh(xc.T @ xc / x.shape[0])
+    order = torch.argsort(vals, descending=True)[:k]
+    return vals[order].numpy(), vecs[:, order].numpy(), float(vals.sum())
+
+
+def label_checks(features, eig, card_dir: Path, cpu_dir: Path) -> dict:
+    """The card's CSVs against the CPU's from the same files: nested
+    labels, each bit split at its median, and card = CPU except rows
+    whose projection lies within the card-vs-CPU roundoff of the median."""
+    import numpy as np
+
+    from visreps_tpu_torch.scripts.coarsegrain.make_pca_labels import np_median, project
+
+    bits = COARSEGRAIN["max_bits"]
+    read = {d: {b: np.loadtxt(d / f"n_classes_{2 ** b}.csv", delimiter=",", skiprows=1,
+                              usecols=1, dtype=np.int64) for b in range(1, bits + 1)}
+            for d in (card_dir, cpu_dir)}
+    card, cpu = read[card_dir], read[cpu_dir]
+    n = len(features)
+    for b in range(2, bits + 1):
+        if not np.array_equal(card[b] >> 1, card[b - 1]):
+            raise RuntimeError(f"{2 ** b}-class labels are not nested in the {2 ** (b - 1)}")
+    ones = [int(((card[bits] >> (bits - 1 - j)) & 1).sum()) for j in range(bits)]
+    if ones != [n // 2] * bits:
+        raise RuntimeError(f"bits above their medians: {ones}, expected {n // 2} each")
+    p_card = project(features, eig["eigenvectors"], eig["mean"], bits, "cuda").cpu()
+    p_cpu = project(features, eig["eigenvectors"], eig["mean"], bits, "cpu")
+    m_card, m_cpu = np_median(p_card), np_median(p_cpu)
+    differ = np.nonzero(card[bits] != cpu[bits])[0]
+    for row in differ:
+        flipped = ((card[bits][row] ^ cpu[bits][row]) >> np.arange(bits)[::-1]) & 1
+        for j in np.nonzero(flipped)[0]:
+            gap = abs(float(p_cpu[row, j] - m_cpu[j]))
+            roundoff = (abs(float(p_cpu[row, j] - p_card[row, j]))
+                        + abs(float(m_cpu[j] - m_card[j])))
+            if gap > roundoff:
+                raise RuntimeError(f"row {row}, PC {j}: card and CPU labels differ {gap} from "
+                                   f"the median, beyond their roundoff {roundoff}")
+    return {"rows": n, "ones_per_bit": ones, "card_cpu_differing_rows": len(differ),
+            "projection_card_vs_cpu_max": float((p_card - p_cpu).abs().max()),
+            "class_counts_64": np.bincount(card[bits], minlength=2 ** bits).tolist()}
+
+
+def phase_coarsegrain(meta: dict, tmp: Path) -> dict:
+    """The PCA-label pipeline at full width: AlexNet ``fc2_post`` features of
+    a synthetic ImageNet (COARSEGRAIN["n_images"] JPEGs, seeded IMAGENET1K-
+    layout weights), the top-k PCs on the card, 2–64-class labels, CustomCNN
+    trained on the 64-class CSV through ``run.main``, and that checkpoint's
+    NSD RSA eval; then ViT-B, CLIP-L/14 and DINOv2-L/14 extraction on a
+    second tree of COARSEGRAIN["tower_images"]. Returns the eval's run, the
+    checkpoint directory and the ImageNet overrides for cg_benefits."""
+    import numpy as np
+    import torch
+
+    from visreps_tpu_torch import run
+    from visreps_tpu_torch.benchmarks.fixture import write_imagenet_fixture
+    from visreps_tpu_torch.benchmarks.weights import write_torchvision_weights
+    from visreps_tpu_torch.models.hf_vit import load_tower
+    from visreps_tpu_torch.models.torch_import import load_pretrained_torch
+    from visreps_tpu_torch.models.zoo import init_model
+    from visreps_tpu_torch.scripts.coarsegrain import compute_eigenvectors, make_pca_labels
+    from visreps_tpu_torch.scripts.extract_representations import (
+        alexnet_representations, clip_representations, dino_representations,
+        vit_representations)
+    from visreps_tpu_torch.scripts.extract_representations.utils import extract_and_save
+
+    spec = COARSEGRAIN
+    root = tmp / "coarsegrain"
+    rec = {"phase": "coarsegrain", "n_images": spec["n_images"]}
+    t_phase = t0 = time.perf_counter()
+    data = write_imagenet_fixture(root / "imagenet", spec["n_images"], pca_n_classes=[])
+    towers = write_imagenet_fixture(root / "towers", spec["tower_images"], pca_n_classes=[])
+    for name, seed in (("AlexNet", spec["alexnet_seed"]), ("ViTBase", spec["vit_seed"])):
+        write_torchvision_weights(root / "weights", name, seed=seed)
+    rec["fixture_s"] = time.perf_counter() - t0
+    env = {"IMAGENET_DATA_DIR": data["dataset_path"],
+           "IMAGENET_LOCAL_DIR": Path(data["label_file"]).parent,
+           "TORCH_WEIGHTS_DIR": root / "weights"}
+    feats_path, eig_path = root / "features_alexnet.npz", root / "eigenvectors_alexnet.npz"
+    card_dir, cpu_dir = root / "pca_labels_card", root / "pca_labels_cpu"
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    with environ(**env):
+        _, seconds["extract"] = timed(alexnet_representations.main,
+                                      ["--out", str(feats_path), "--batch-size", "256"])
+        feats = np.load(feats_path)
+        features = feats["features"]
+        if features.shape != (spec["n_images"], 4096) or not np.isfinite(features).all():
+            raise RuntimeError(f"AlexNet features {features.shape}, finite "
+                               f"{np.isfinite(features).all()}")
+
+        def alexnet_on(device):
+            model = load_pretrained_torch(init_model("AlexNet", 1000, seed=0, device=device),
+                                          "AlexNet", 1000)
+            return alexnet_representations.build_extract(model, device)
+
+        rec["alexnet"] = card_vs_cpu("alexnet", features, alexnet_on,
+                                     first_images(spec["check_rows"]))
+    rec["extract_images_per_s"] = spec["n_images"] / seconds["extract"]
+
+    _, seconds["fit"] = timed(compute_eigenvectors.main, [
+        "--features", str(feats_path), "--out", str(eig_path), "--top-k", str(spec["top_k"])])
+    eig = np.load(eig_path)
+    t0 = time.perf_counter()
+    vals64, vecs64, total64 = f64_fit(features, spec["top_k"])
+    rec["f64_fit_s"] = time.perf_counter() - t0
+    eig_err = np.abs(eig["eigenvalues"] - vals64) / vals64
+    cosines = np.linalg.svd(vecs64.T @ eig["eigenvectors"].astype(np.float64), compute_uv=False)
+    angle = float(np.arccos(np.clip(cosines.min(), -1.0, 1.0)))
+    rec["pca"] = {"eigenvalues": eig["eigenvalues"].tolist(),
+                  "eigenvalue_rel_err_max": float(eig_err.max()),
+                  "total_variance_rel_err": abs(float(eig["total_variance"]) - total64) / total64,
+                  "subspace_angle_rad": angle, "eig_rtol": spec["eig_rtol"],
+                  "angle_tol_rad": spec["angle_tol"],
+                  "variance_ratio": (eig["eigenvalues"] / eig["total_variance"]).tolist()}
+    if not (eig_err.max() <= spec["eig_rtol"] and angle <= spec["angle_tol"]):
+        raise RuntimeError(f"card PCA against the f64 fit: {rec['pca']}")
+
+    label_args = ["--features", str(feats_path), "--eigen", str(eig_path),
+                  "--max-bits", str(spec["max_bits"])]
+    _, seconds["labels"] = timed(make_pca_labels.main, [*label_args, "--out-dir", str(card_dir)])
+    make_pca_labels.main([*label_args, "--out-dir", str(cpu_dir), "--device", "cpu"])
+    rec["labels"] = label_checks(features, eig, card_dir, cpu_dir)
+    del features, feats
+
+    checkpoint_dir = root / "model_checkpoints"
+    n_classes = 2 ** spec["max_bits"]
+    trainer, seconds["train"] = timed(run.main, [
+        "--mode", "train", "--config", str(ROOT / "configs/train/base.json"), "--override",
+        "pca_labels=true", f"pca_n_classes={n_classes}", f"batchsize={spec['batch']}",
+        "num_epochs=1", "warmup_epochs=0", f"train_fraction={spec['train_fraction']}",
+        "num_workers=16", "log_interval=2", "checkpoint_interval=1", "log_checkpoints=true",
+        f"checkpoint_dir={checkpoint_dir}", f"dataset_path={data['dataset_path']}",
+        f"label_file={data['label_file']}", f"pca_labels_folder={card_dir}"])
+    losses = [h["loss"] for h in trainer.history]
+    if len(losses) != spec["train_steps"] or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train on the PCA labels: {len(losses)} steps, losses {losses}")
+    run_dir = checkpoint_dir / f"cfg{n_classes}a"
+    for epoch in (0, 1):
+        if not (run_dir / f"checkpoint_epoch_{epoch}.pth").is_file():
+            raise RuntimeError(f"train did not write epoch {epoch}'s checkpoint in {run_dir}")
+    rec["train"] = {"steps": len(losses), "loss": losses, "batch": spec["batch"],
+                    "ms_per_step_in_trainer": 1e3 * seconds["train"] / len(losses),
+                    "loader_wait_s": trainer.loader_wait_s}
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    with environ(**nsd_env(meta)):
+        eval_run = run_eval("coarsegrain_eval", meta, [
+            "load_model_from=checkpoint", f"cfg_id={n_classes}",
+            f"checkpoint_dir={checkpoint_dir}", "checkpoint_model=checkpoint_epoch_1.pth"],
+            f"cfg_id = {n_classes} AND epoch = 1",
+            lambda cfg_id, epoch: cfg_id == n_classes and epoch == 1)
+    seconds["eval"] = time.perf_counter() - t0
+
+    tower_env = {"IMAGENET_DATA_DIR": towers["dataset_path"],
+                 "IMAGENET_LOCAL_DIR": Path(towers["label_file"]).parent,
+                 "TORCH_WEIGHTS_DIR": root / "weights"}
+    rec["towers"] = {}
+    with environ(**tower_env):
+        images = first_images(spec["tower_check_rows"])
+
+        def vit_on(device):
+            model = load_pretrained_torch(init_model("ViTBase", 1000, seed=0, device=device),
+                                          "ViTBase", 1000)
+            return vit_representations.build_extract(model, device)
+
+        def tower_on(kind):
+            """One seeded tower, built once on the CPU (a ViT-L init takes
+            seconds) and moved to the device each extraction asks for."""
+            module = clip_representations if kind == "clip-vit-l14" else dino_representations
+            tower = load_tower(kind, pretrained=False, device="cpu")
+
+            def build(device):
+                tower.to(device)
+                return (module.build_extract(tower, 224, device) if module is clip_representations
+                        else module.build_extract(tower, device))
+            return build
+
+        for name, build in (("vit_b16", vit_on), ("clip-vit-l14", tower_on("clip-vit-l14")),
+                            ("dinov2-l14", tower_on("dinov2-l14"))):
+            out = root / f"features_{name}.npz"
+            torch.cuda.reset_peak_memory_stats()
+            if name == "vit_b16":
+                _, s = timed(vit_representations.main, ["--backend", "flax", "--out", str(out)])
+            else:
+                _, s = timed(extract_and_save, build(torch.device("cuda")), str(out),
+                             batch_size=128)
+            rows = np.load(out)["features"]
+            if len(rows) != spec["tower_images"] or not np.isfinite(rows).all():
+                raise RuntimeError(f"{name}: {rows.shape} features, finite {np.isfinite(rows).all()}")
+            rec["towers"][name] = {"seconds": s, "images_per_s": len(rows) / s,
+                                   "dim": rows.shape[1],
+                                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                   **card_vs_cpu(name, rows, build, images)}
+            torch.cuda.empty_cache()
+    rec["seconds"] = seconds
+    rec["rdm_launches"] = eval_run["launches"]
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return {"eval": eval_run, "checkpoint_dir": checkpoint_dir, "imagenet": data,
+            "n_classes": n_classes}
+
+
+def phase_cg_benefits(meta: dict, tmp: Path, cg: dict) -> dict:
+    """The coarse-grain-benefit experiments on the coarsegrain phase's
+    checkpoint (CLI entry points, on the card): linear probe, few-shot,
+    class selectivity and augmentation invariance on a seeded Tiny-ImageNet
+    tree; ImageNet-C robustness (all 15 corruptions) with the torch
+    logistic probe, and the deterministic corruptions card against CPU;
+    curriculum fine-tuning 64 → 1000 (late_layers); curriculum NSD RSA of
+    three checkpoints on the e2e fixture, one RDM launch per RDM. Returns
+    the RSA run (launches and RDM shapes)."""
+    import numpy as np
+    import torch
+
+    from visreps_tpu_torch.benchmarks.fixture import write_tiny_imagenet_fixture
+    from visreps_tpu_torch.experiments.coarse_grain_benefits import (
+        augmentation_invariance, class_selectivity, corruptions, curriculum_finetuning,
+        curriculum_nsd_rsa, few_shot, imagenet_c_robustness, linear_probe)
+
+    spec = CG_BENEFITS
+    root = tmp / "cg_benefits"
+    rec = {"phase": "cg_benefits"}
+    t_phase = t0 = time.perf_counter()
+    tiny = write_tiny_imagenet_fixture(root / "tiny", n_classes=spec["classes"],
+                                       n_train=spec["n_train"], n_val=spec["n_val"])
+    rec["fixture_s"] = time.perf_counter() - t0
+    n_classes = cg["n_classes"]
+    chance = 100.0 / spec["classes"]
+    ckpt = Path(cg["checkpoint_dir"]) / f"cfg{n_classes}a"
+    common = ["--checkpoint-dir", str(cg["checkpoint_dir"]), "--cfg-id", str(n_classes),
+              "--checkpoint-model", "checkpoint_epoch_1.pth", "--probe-dataset", tiny]
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    top1, seconds["linear_probe"] = timed(linear_probe.main, common)
+    shots, seconds["few_shot"] = timed(few_shot.main, [*common, "--k-shot", *map(str, spec["k_shot"]),
+                                                       "--episodes", str(spec["episodes"])])
+    sel, seconds["class_selectivity"] = timed(class_selectivity.main, common)
+    inv, seconds["augmentation_invariance"] = timed(augmentation_invariance.main, common)
+    # The linear probe is held to finite only: its ridge CV (both packages')
+    # takes contiguous folds of the class-sorted rows, so each fold holds out
+    # whole classes and CV picks the largest alpha for every class.
+    rec["linear_probe_top1"] = top1
+    rec["chance_pct"] = chance
+    rec["few_shot"] = {str(k): list(v) for k, v in shots.items()}
+    rec["class_selectivity"] = {k: {"mean": float(v.mean()), "units": len(v)}
+                                for k, v in sel.items()}
+    rec["augmentation_invariance"] = {k: float(v.mean()) for k, v in inv.items()}
+    if not (math.isfinite(top1)
+            and all(math.isfinite(m) and m > chance for m, _ in shots.values())
+            and inv and all(np.isfinite(v).all() for v in (*sel.values(), *inv.values()))):
+        raise RuntimeError(f"probe accuracies not finite or not above chance ({chance} %): {rec}")
+
+    imc_csv = root / "imagenet_c_robustness.csv"
+    rows, seconds["imagenet_c"] = timed(imagenet_c_robustness.main, [
+        "--checkpoints", f"{n_classes}way={ckpt / 'checkpoint_epoch_1.pth'}",
+        "--probe-dataset", f"{tiny}/train", "--n-images", str(spec["imc_images"]),
+        "--severity", "3", "--image-size", "224", "--out", str(imc_csv)])
+    clean = rows[0]["clean_acc"]
+    if (len(rows) != 15 or not 100.0 * clean > chance
+            or not all(0.0 <= r["corrupt_acc"] <= 1.0 for r in rows)):
+        raise RuntimeError(f"imagenet_c: {len(rows)} rows, clean accuracy {clean}")
+    rec["imagenet_c"] = {"clean_acc": clean,
+                         "corrupt_acc": {r["corruption"]: r["corrupt_acc"] for r in rows}}
+    images, _ = imagenet_c_robustness.load_images(f"{tiny}/train", spec["corrupt_check"], 224)
+    images = images[:spec["corrupt_check"]]
+    rec["corruptions"] = {}
+    for name in corruptions.CORRUPTIONS:
+        out, s = timed(corruptions.corrupt_batch, name, images, 3, 42, "cuda")
+        entry = {"ms": 1e3 * s}
+        if name in spec["deterministic"]:
+            want = corruptions.corrupt_batch(name, images, 3, 42, "cpu")
+            entry["card_vs_cpu_max_abs"] = float((out.cpu() - want).abs().max())
+            if not entry["card_vs_cpu_max_abs"] <= spec["corrupt_tol"]:
+                raise RuntimeError(f"{name}: card against CPU {entry}")
+        rec["corruptions"][name] = entry
+
+    out_dir = root / "curriculum_checkpoints"
+    with environ(IMAGENET_DATA_DIR=cg["imagenet"]["dataset_path"],
+                 IMAGENET_LOCAL_DIR=Path(cg["imagenet"]["label_file"]).parent):
+        results, seconds["curriculum_finetuning"] = timed(curriculum_finetuning.main, [
+            "--source-cfg-id", str(n_classes), "--target-cfg-id", "1000",
+            "--checkpoint-dir", str(cg["checkpoint_dir"]),
+            "--checkpoint-model", "checkpoint_epoch_1.pth", "--transfer-mode", "late_layers",
+            "--num-epochs", "1", "--warmup-epochs", "0", "--eval-freq", "1",
+            "--batch-size", str(spec["finetune_batch"]), "--num-workers", "16",
+            "--output-dir", str(out_dir)])
+    finetuned = out_dir / f"cfg{n_classes}_to_1000_late_layers_a"
+    if not (len(results) == 2 and all(math.isfinite(r["val_top1"]) for r in results)
+            and (finetuned / "checkpoint_epoch_1.pth").is_file()):
+        raise RuntimeError(f"curriculum_finetuning: {results}")
+    rec["curriculum_finetuning"] = {"val_top1": [r["val_top1"] for r in results],
+                                    "train_loss": results[-1]["train_loss"]}
+
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    checkpoints = {f"{n_classes}way": ckpt / "checkpoint_epoch_1.pth",
+                   f"{n_classes}to1000": finetuned / "checkpoint_epoch_1.pth",
+                   "untrained": ckpt / "checkpoint_epoch_0.pth"}
+    subjects = list(range(E2E["n_subjects"]))
+    with environ(**nsd_env(meta)), rdm_probe() as probe:
+        t0 = time.perf_counter()
+        rsa_rows = curriculum_nsd_rsa.main([
+            "--checkpoints", *(f"{k}={v}" for k, v in checkpoints.items()),
+            "--subjects", *map(str, subjects), "--out-dir", str(root / "rsa")])
+        torch.cuda.synchronize()
+        seconds["curriculum_nsd_rsa"] = time.perf_counter() - t0
+    n_layers = len(curriculum_nsd_rsa.LAYERS)
+    n_regions = len(curriculum_nsd_rsa.REGIONS)
+    expected_rows = len(checkpoints) * len(subjects) * n_regions * n_layers
+    keys = {(r["model_name"], r["subject_idx"], r["region"], r["layer"]) for r in rsa_rows}
+    expected_rdms = len(checkpoints) * len(subjects) * n_regions * (n_layers + 1)
+    if (len(rsa_rows) != expected_rows or len(keys) != expected_rows
+            or not all(math.isfinite(r["score"]) for r in rsa_rows)):
+        raise RuntimeError(f"curriculum_nsd_rsa: {len(rsa_rows)} rows, expected {expected_rows}")
+    rsa_run = {"launches": probe["launches"], "shapes": probe["shapes"]}
+    check_launches(rsa_run, expected_rdms, "checkpoints · subjects · regions · (layers + 1)")
+    rec["curriculum_nsd_rsa"] = {
+        "rows": len(rsa_rows), "rdm_launches": probe["launches"],
+        "rdm_shapes": [[*k, v] for k, v in sorted(probe["shapes"].items())],
+        "mean_score": {name: float(np.mean([r["score"] for r in rsa_rows
+                                            if r["model_name"] == name]))
+                       for name in checkpoints}}
+    rec["seconds"] = seconds
+    rec["rsa_peak_mem_gb"] = probe["peak_mem_gb"]
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rsa_run
+
+
 def main() -> int:
     import torch
 
@@ -2982,8 +3440,11 @@ def main() -> int:
         rsa_runs.append(phase_nsd73k_vgg16(meta73, tmp))
         phase_nsd73k_encoding(meta73)
         shutil.rmtree(Path(meta73["stimuli"]).parent)
-        phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
         phase_encoding(tmp)
+        cg = phase_coarsegrain(meta, tmp)
+        rsa_runs.append(cg["eval"])
+        rsa_runs.append(phase_cg_benefits(meta, tmp, cg))
+        phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_encoding_check()

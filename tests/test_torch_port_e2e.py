@@ -258,10 +258,21 @@ class TestStandalone:
             "for m in ('cross_model_rdms', 'extract_representations', 'compute_eigenspectra', "
             "'compute_twonn_id', 'cross_decomposition', 'metrics')} | "
             "{'visreps_tpu_torch.benchmarks.weights', 'visreps_tpu_torch.ops.metrics', "
-            "'visreps_tpu_torch.explore_results', 'visreps_tpu_torch.config'}\n"
+            "'visreps_tpu_torch.explore_results', 'visreps_tpu_torch.config'} | "
+            "{'visreps_tpu_torch.scripts.' + m for m in ('extract_representations.utils', "
+            "'extract_representations.alexnet_representations', "
+            "'extract_representations.vit_representations', "
+            "'extract_representations.clip_representations', "
+            "'extract_representations.dino_representations', "
+            "'coarsegrain.compute_eigenvectors', 'coarsegrain.make_pca_labels')} | "
+            "{'visreps_tpu_torch.experiments.coarse_grain_benefits.' + m for m in ('utils', "
+            "'corruptions', 'linear_probe', 'few_shot', 'class_selectivity', "
+            "'augmentation_invariance', 'imagenet_c_robustness', 'curriculum_finetuning', "
+            "'curriculum_nsd_rsa')}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu', 'pandas', "
+            "'sklearn', 'matplotlib')]\n"
             "assert not bad, bad\n")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=300)

@@ -231,6 +231,25 @@ class TestHFConverters:
         jpooled, _ = jmod.apply({"params": jparams}, jnp.asarray(batch), capture=())
         np.testing.assert_allclose(pooled.numpy(), np.asarray(jpooled), atol=TOL, rtol=0)
 
+    def test_vit_snapshot(self, batch, tmp_path):
+        """``vit_representations --backend hf``: an HF ViTModel saved to disk,
+        read without transformers into the port's ViT, against the model's
+        own ``last_hidden_state[:, 0]``."""
+        from visreps_tpu_torch.scripts.extract_representations import vit_representations
+
+        transformers = _hf()
+        torch.manual_seed(2)
+        hf = transformers.ViTModel(transformers.ViTConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=3, num_attention_heads=4,
+            image_size=IMG, patch_size=16)).eval()
+        hf.save_pretrained(tmp_path)
+        snap = thf.hf_snapshot_dir(str(tmp_path))
+        model = vit_representations.vit_from_hf(*thf.read_hf_snapshot(snap)).eval()
+        got = vit_representations.build_extract_hf(model, torch.device("cpu"))(batch)
+        with torch.no_grad():
+            ref = hf(pixel_values=_nchw(batch)).last_hidden_state[:, 0]
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=HF_TOL)
+
 
 _READER = """
 import json, sys

@@ -367,3 +367,34 @@ def write_imagenet_fixture(root: str | Path, n_images: int, n_classes: int = 32,
             f.writelines(f"{name},{(i % n_classes) % k}\n" for i, name in enumerate(names))
     return {"dataset_path": str(images), "label_file": str(label_file),
             "pca_labels_folder": str(pca_dir)}
+
+
+def write_tiny_imagenet_fixture(root: str | Path, n_classes: int = 200, n_train: int = 20,
+                                n_val: int = 10, img_size: int = 64, seed: int = 0) -> str:
+    """Write a Tiny-ImageNet layout under ``root``: ``train/`` and ``val/``
+    with one folder per class (``n{k:08d}``) of ``n_train`` and ``n_val``
+    JPEGs (numpy RandomState(seed)): a class colour plus 8 × 8 blocks of
+    noise, so probes can tell the classes apart. Returns ``root``."""
+    from PIL import Image
+
+    root = Path(root).resolve()
+    rng = np.random.RandomState(seed)
+    colours = rng.randint(0, 256, (n_classes, 3))
+    block = 8
+    jobs = []
+    for split, n in (("train", n_train), ("val", n_val)):
+        noise = rng.randint(-48, 49, (n_classes, n, img_size // block, img_size // block, 3))
+        for k in range(n_classes):
+            folder = root / split / f"n{k:08d}"
+            folder.mkdir(parents=True, exist_ok=True)
+            jobs.extend((folder / f"{split}_{k}_{i}.JPEG", colours[k], noise[k, i])
+                        for i in range(n))
+
+    def write(job):
+        path, colour, blocks = job
+        px = np.kron(blocks, np.ones((block, block, 1), np.int64)) + colour
+        Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(path, quality=90)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, jobs))
+    return str(root)

@@ -101,6 +101,10 @@ class LazyStimulusBrick:
             raise KeyError(key)
         return self._dset()[self._index_map[k]]
 
+    def subset(self, keys) -> "LazyStimulusBrick":
+        """A reader over the same brick holding only ``keys``."""
+        return LazyStimulusBrick(self._path, self._name, [self._index_map[str(k)] for k in keys])
+
     def item_spec(self):
         """(per-item shape, dtype) from the brick's metadata (no data read)."""
         dset = self._dset()

@@ -123,6 +123,17 @@ class FeatureExtractor:
                 return p
         raise KeyError(f"Layer {layer!r} not among extraction points {self.points}")
 
+    def _project(self, taps: dict) -> dict[str, torch.Tensor]:
+        """{tap name: (B, k) float32 SRP rows} of one batch's raw taps, each
+        raw tap released as its projection is made."""
+        return {self.alias[p]: self.srp(_flatten_hwc(taps.pop(p))) for p in self.points}
+
+    @torch.inference_mode()
+    def srp_batch(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The SRP rows of every tap of one (B, 3, H, W) float32 batch
+        already on the device."""
+        return self._project(self.model(x, capture=self.points)[1])
+
     @torch.inference_mode()
     def get_activations(self, loader: Iterable, store: str = "device", retain_ids=None):
         """All-tap SRP activations over a loader of (batch, keys).
@@ -166,14 +177,12 @@ class FeatureExtractor:
                     rows = torch.as_tensor(kept, dtype=torch.long)
                     if store == "device" and self.device.type == "cuda":
                         rows = rows.pin_memory().to(self.device, non_blocking=True)
-            taps = self._taps(x, self.points)
             pos = len(ids)
             m = len(keys) if kept is None else len(kept)
-            for p in self.points:
-                out = self.srp(_flatten_hwc(taps.pop(p)))
+            for name, out in self._project(self._taps(x, self.points)).items():
                 if kept is not None:
                     out = out.index_select(0, rows) if store == "device" else out.cpu()[rows]
-                acts[self.alias[p]][pos:pos + m] = out
+                acts[name][pos:pos + m] = out
             ids.extend(keys if kept is None else [keys[i] for i in kept])
         if n_seen != n_total:
             raise RuntimeError(f"loader yielded {n_seen} stimuli, expected {n_total}")
