@@ -144,7 +144,7 @@ non-zero without the final line:
      each other and against the pickled module's own forward; then the
      e2e eval of it (``load_model_from=checkpoint``, cfg_id 64, epoch 20).
  13. e2e_resnet50, e2e_vit — the e2e eval of ResNet50 and ViT-B/16
-     (VGG16's runs at 73,000 stimuli in 13f) with
+     (VGG16's runs at 37,000 stimuli in 13f) with
      ``pretrained_dataset=imagenet1k``: a seeded
      state dict in torchvision's layout, written under torchvision's file
      name into a temporary TORCH_WEIGHTS_DIR, is imported (the loaded
@@ -204,26 +204,30 @@ non-zero without the final line:
      (1e-5); Two-NN IDs of conv5_post and fc1_post (1e-4 relative) and a
      PLSSVD cross-decomposition against a planted response (1e-4), each
      card against CPU.
- 13f. nsd73k_vgg16 — the NSD fixture at its default scale, cut to 2
-     regions (73,000 stimuli = 1,000 shared + 8 × 9,000 unique, 8
-     subjects, 512 voxels, a 14.35 GB uint8 brick, written after ``df``:
-     with under 30 GB free n_unique drops to 4,500, 37,000 stimuli), and
-     VGG16's eval on it as in 13 (8 subjects × 2 regions, batch 128) with
-     ``acts_retain`` at auto: the rule must retain (the plan's 8,000 rows
-     into the bf16 device store, against 17.94 GB unretained), with 13's
+ 13f. nsd73k_vgg16 — the NSD fixture of 8 subjects × 512 voxels cut to 2
+     regions and to 4,500 unique stimuli a subject (37,000 stimuli =
+     1,000 shared + 8 × 4,500 unique, against NSD's 73,000, to keep the
+     script inside its limit: the fewest that keep VGG16's store over the
+     retention budget; a 7.3 GB uint8 brick), and VGG16's eval on it as in
+     13 (8 subjects × 2 regions, batch 128) with ``acts_retain`` at auto:
+     the rule must retain (the plan's 8,000 rows into the bf16 device
+     store, against 9.09 GB unretained), with 13's
      checks (16 results and rows, one launch per RDM) and a peak under
      80 GB. Phase 2 extracts its selected layers in as many passes as
      the card's free memory needs (``evals._exact_groups``).
  13g. nsd73k_encoding — untrained ResNet50's encoding eval (18 taps,
      1000 bootstraps) on the same brick, 8 subjects × 2 regions, with
-     ``acts_store`` at auto: the rule must take the f32 host store
-     (1.03e10 bytes of bf16 store over the 9e9 budget); 16 results and
+     ``acts_store=host``: the f32 host store (10.5 GB; ``auto`` takes it
+     above 63,711 rows, as at NSD's 73,000, and the bf16 device store
+     at 37,000), its rows gathered to the card from pinned memory; 16
+     results and
      rows, finite scores and CIs, no RDM launch. Prints the host store's
      GB, the host's resident memory before and its peak after (the
      brick's mapped pages count), the encoding phases and the wall. The
      brick is removed after it.
- 14. path (run after 15b) — the RDM shapes every RSA eval, cross_model
-     and curriculum_nsd_rsa called, with
+ 14. path (run after 15e) — the RDM shapes every RSA eval, cross_model,
+     curriculum_nsd_rsa, the reconstruction sweeps and binary-PC RSA
+     called, with
      their launch counts and the kernel's time at each: its time on the
      main path, Σ launches × ms. A shape the kernel phase did not check
      gets the kernel phase's checks here before it is timed, beside the
@@ -290,16 +294,55 @@ non-zero without the final line:
      per RDM (96). Few-shot and ImageNet-C clean accuracy must beat
      chance; the linear probe is held to finite (its contiguous CV folds
      of class-sorted rows pick the largest alpha, in both packages).
- 17. kernels — the per-kernel summary line (launches: the fifteen RSA
-     evals run in this process, cross_model and curriculum_nsd_rsa; the
-     procs workers' launches are theirs; the encoding evals, the
-     analyses, the PCA pipeline and training launch none).
+ 15c. reconstruction — the PC-reconstruction sweep through
+     ``experiments/reconstruction_analysis/run_reconstruction``'s CLI: a
+     1000-way CustomCNN trained here (5 steps on the train phase's JPEGs,
+     so its rows carry cfg_id 1000 as the sweep and its figure expect) and
+     its NSD RSA eval (e2e's checks: the baseline rows); then the sweep on
+     e2e's fixture (2 × 2 pairs, pca_k 1–15, full width, 1000 bootstraps,
+     Spearman) and on TVSD's and THINGS' fixtures at pca_k 1, 2, 4, 8 and
+     15 (the depth cut; uint8 feed, so that THINGS' 25,956 decoded ids
+     fit the decode cache and are decoded once), whose baseline rows the
+     phase writes into a results.db of their own (an eval of their 22,348
+     or 25,956 images would take ≈ 30 s each; fixed layers, listed in
+     RECON). Checks one row
+     per (region, subject, pca_k) with the baseline's layer, finite scores
+     and CIs, 1000 bootstraps a row, one RDM launch per RDM (neural + ks ·
+     unique layers), and the narrowest NSD layer's reconstructions at
+     pca_k 1 and 15 against an f64 SVD of the same card taps on the CPU
+     (1e-5 of the largest value).
+ 15d. binary_pc_rsa — ``experiments/binary_pc_rsa/main``'s CLI on the
+     coarsegrain phase's eigenvectors with seeded AlexNet (``--pretrained
+     none``) on e2e's subjects: n_pcs 2–20, Spearman and Kendall, 304
+     finite rows; each Hamming RDM of the first subject at 2 and 20 PCs
+     bit-equal to a CPU XOR sum of the same codes, each neural RDM within
+     1e-5 of the plain version on the same rows, and one RDM launch per
+     neural RDM (the Hamming RDMs are one product each, no kernel).
+ 15e. figures — fig. 1 from four RSM npz files of the NSD sweep's card
+     RDMs (pca_k 1 and 2, 8 and 15) on the card, its Kendall scores within
+     1e-6 of the CPU's on the first layer; a long CSV exported from this
+     run's results.db (and the TVSD / THINGS sweep rows) read by figs. 2–4
+     and the bar plots, module 2 on results.db, the binary-PC figure on
+     its CSV, plot_curriculum_rsa on curriculum RSA's rows: each CLI's
+     series equal to the same data functions called in this process, and
+     module 2's NSD curve, fig. 2's and fig. 3's matrices and both bar
+     plots' condition scores to a plain recomputation from results.db
+     (SQL rows averaged in Python; 1e-12 relative). The binary-PC and
+     curriculum series and figs. 3–4's layer lines are held to the JAX
+     package's by the CPU tests only. Prints the figures not drawn
+     (no matplotlib here).
+ 17. kernels — the per-kernel summary line (launches: the sixteen RSA
+     evals run in this process, cross_model, curriculum_nsd_rsa, the
+     reconstruction sweeps and binary-PC RSA's neural RDMs; the procs
+     workers' launches are theirs; the encoding evals, the analyses, the
+     PCA pipeline, training and the figures launch none).
 
 Then the card's name and power limit, and the final status line.
 Needs CUDA; exits 1 without it.
 """
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -453,16 +496,16 @@ ANALYSES = {"nodes": ["conv5", "fc1", "fc2"], "batch": 128, "tol": 1e-5, "id_tol
 # on its subjects: equal bits expected, a difference up to ``tol`` allowed
 # for f32 sums grouped over another set of pairs).
 PROCS = {"procs": 2, "tol": 1e-6}
-# nsd73k: the NSD fixture at its default scale (73,000 stimuli = 1,000 shared
-# + 8 × 9,000 unique, 8 subjects, 512 voxels, 256 px), cut to 2 regions.
-# VGG16 from a seeded file (RSA, acts_retain auto: its 73,000-row bf16 store
-# would be 17.94 GB, over the 9e9-byte budget), ResNet50 untrained (encoding,
-# acts_store auto: 1.03e10 bytes, the f32 host store). With under
-# ``min_free_gb`` free where the brick goes, n_unique is cut to ``cut_unique``
-# (37,000 stimuli, above the 36,622 where VGG16's store reaches the budget).
-NSD73K = {"n_shared": 1000, "n_unique": 9000, "n_subjects": 8, "n_regions": 2,
-          "n_voxels": 512, "img_size": 256, "min_free_gb": 30, "cut_unique": 4500,
-          "device_gb": 80}
+# nsd73k: the NSD fixture (8 subjects, 512 voxels, 256 px) cut to 2 regions and
+# to 4,500 unique stimuli a subject (37,000 stimuli, against the default 73,000 =
+# 1,000 shared + 8 × 9,000 unique, to keep the script inside its limit). VGG16
+# from a seeded file (RSA, acts_retain auto: its 37,000-row bf16 store would be
+# 9.09 GB, over the 9e9-byte budget), ResNet50 untrained (encoding, acts_store
+# host: the f32 host store that auto takes at NSD's 73,000 stimuli; at 37,000
+# auto would take the bf16 device store, 5.23e9 bytes). 37,000 is just above
+# the 36,622 stimuli where VGG16's store reaches the budget.
+NSD73K = {"n_shared": 1000, "n_unique": 4500, "n_subjects": 8, "n_regions": 2,
+          "n_voxels": 512, "img_size": 256, "device_gb": 80}
 
 # coarsegrain: the PCA-label pipeline on a synthetic ImageNet of ``n_images``
 # 256 px JPEGs (32 classes): AlexNet fc2_post from a seeded IMAGENET1K-layout
@@ -490,6 +533,28 @@ CG_BENEFITS = {"classes": 200, "n_train": 20, "n_val": 10, "k_shot": [1, 5], "ep
                "deterministic": ["brightness", "contrast", "pixelate", "defocus_blur",
                                  "zoom_blur", "jpeg_compression"],
                "finetune_batch": 384}
+# reconstruction: run_reconstruction's CLI on a 1000-way CustomCNN trained here
+# (``train_epochs`` on the train phase's JPEGs, so its rows carry cfg_id 1000
+# as the sweep and its figure expect) with its own NSD baseline eval: NSD on
+# e2e's fixture at every ``nsd_k``, TVSD and THINGS on their phases' fixtures
+# at ``k`` (the depth cut), their baseline rows written into a separate
+# results.db (``baselines``: the best layer of each pair; an eval of TVSD's
+# 22,348 or THINGS' 25,956 images would take ≈ 30 s each), both with the uint8
+# feed (THINGS' float feed, 15.6 GB, would overflow the decode cache and
+# decode every image twice). The card's
+# reconstructions at ``check_k`` of the narrowest NSD layer against an f64
+# SVD of the same taps on the CPU within PCA_TOL.
+RECON = {"nsd_k": list(range(1, 16)), "k": [1, 2, 4, 8, 15], "train_epochs": 1,
+         "check_k": [1, 15], "tvsd_layers": {"V1": "conv3_post", "V4": "conv5_post",
+                                             "IT": "fc1_post"},
+         "things_layer": "fc1_post", "fig1_k": {"f1": 1, "f2": 2, "t1": 8, "t2": 15}}
+# binary_pc_rsa: its CLI on the coarsegrain phase's eigenvectors, seeded
+# AlexNet (``--pretrained none``) on e2e's subjects; every Hamming RDM of the
+# first subject at ``check_pcs`` against a CPU XOR sum, bit for bit.
+BINARY = {"n_pcs": list(range(2, 21)), "correlations": ["spearman", "kendall"],
+          "check_pcs": [2, 20]}
+# figures: fig. 1's Kendall scores on the card against the CPU's (first layer)
+FIG1_TOL = 1e-6
 
 
 START = time.perf_counter()
@@ -1225,9 +1290,8 @@ def phase_procs(meta: dict, e2e_run: dict, tmp: Path) -> dict:
 
 
 def nsd73k_fixture(tmp: Path) -> dict:
-    """The NSD fixture at NSD73K's scale under ``tmp`` (``df`` first: with
-    under NSD73K["min_free_gb"] free, n_unique is cut); points the NSD
-    loaders at it and returns its meta with the cut and the seconds."""
+    """The NSD fixture at NSD73K's scale under ``tmp`` (``df`` first); points
+    the NSD loaders at it and returns its meta with the seconds."""
     from visreps_tpu_torch.benchmarks import fixture
 
     root = tmp / "nsd73k_fixture"
@@ -1236,23 +1300,20 @@ def nsd73k_fixture(tmp: Path) -> dict:
     free_gb = shutil.disk_usage(root).free / 1e9
     spec = {k: NSD73K[k] for k in ("n_shared", "n_unique", "n_subjects", "n_regions",
                                    "n_voxels", "img_size")}
-    if free_gb < NSD73K["min_free_gb"]:
-        spec["n_unique"] = NSD73K["cut_unique"]
     t0 = time.perf_counter()
     meta = fixture.ensure_fixture(root, **spec)
     meta["fixture_s"] = time.perf_counter() - t0
     os.environ["NSD_DATA_DIR"] = str(Path(meta["pickle"]).parent)
     os.environ["NSD_STIMULI_HDF5"] = meta["stimuli"]
     emit({"phase": "nsd73k_fixture", "df": df.stdout.strip().splitlines()[-1],
-          "free_gb": free_gb, "n_unique": spec["n_unique"],
-          "n_unique_cut": spec["n_unique"] != NSD73K["n_unique"], "n_stimuli": meta["n_stimuli"],
+          "free_gb": free_gb, "n_unique": spec["n_unique"], "n_stimuli": meta["n_stimuli"],
           "brick_gb": Path(meta["stimuli"]).stat().st_size / 1e9, "seconds": meta["fixture_s"]})
     return meta
 
 
 def phase_nsd73k_vgg16(meta: dict, tmp: Path) -> dict:
     """VGG16 (seeded torchvision-layout file, ``phase_pretrained``'s
-    checks) on the 73,000-stimulus fixture, 8 subjects × 2 regions, with
+    checks) on the 37,000-stimulus fixture, 8 subjects × 2 regions, with
     ``acts_retain`` at auto: the rule must retain (the plan's ≈ 8,000
     rows) into the device store; 16 results and rows, finite scores, 1000
     bootstraps, one launch per RDM, and a peak under the card's 80 GB."""
@@ -1277,13 +1338,13 @@ def phase_nsd73k_vgg16(meta: dict, tmp: Path) -> dict:
 
 def phase_nsd73k_encoding(meta: dict) -> None:
     """The encoding eval of untrained ResNet50 (18 taps) on the
-    73,000-stimulus fixture, 8 subjects × 2 regions, ``acts_store`` at
-    auto: the rule must take the f32 host store; 16 results and rows, 18
+    37,000-stimulus fixture, 8 subjects × 2 regions, ``acts_store=host``:
+    the f32 host store, as ``auto`` takes it at NSD's 73,000 stimuli (the
+    rule's choice at every size is tests/test_torch_port_retention.py's);
+    16 results and rows, 18
     selection scores and 1000 bootstraps each, finite scores and CIs, no
     RDM launch. Prints the host store's GB, the host's resident memory
     before and its peak after, the encoding phases and the wall."""
-    from visreps_tpu_torch import evals
-
     subjects = list(range(NSD73K["n_subjects"]))
     regions = NSD_REGIONS[: NSD73K["n_regions"]]
     rss_before = host_rss_gb()
@@ -1293,14 +1354,13 @@ def phase_nsd73k_encoding(meta: dict) -> None:
             "neural_dataset=nsd", "analysis=encoding_score", "encoding_cv_precision=high",
             f"subject_idx={json.dumps(subjects)}", f"region={json.dumps(regions)}",
             "bootstrap=true", "n_bootstrap=1000", "srp_k=4096", "extract_pre_and_post=true",
-            "uint8_transfer=true", "log_expdata=true", "batchsize=256", "num_workers=8"])
+            "acts_store=host", "uint8_transfer=true", "log_expdata=true", "batchsize=256",
+            "num_workers=8"])
     results = run["results"]
     rows = db_rows("analysis = 'encoding_score' AND model_name = 'ResNet50'")
     n_pairs = len(subjects) * len(regions)
     problems = []
-    # the host store at 73,000 stimuli; under the n_unique cut the bf16 store fits
-    host = store.get("full_bf16_store_gb", 0) * 1e9 >= evals.STORE_BUDGET_BYTES
-    want = ("host", "float32", "cpu") if host else ("device", "bfloat16", "cuda")
+    want = ("host", "float32", "cpu")
     if (store.get("store"), store.get("dtype"), store.get("device")) != want \
             or store.get("retained"):
         problems.append(f"store {store}: expected {want}, unretained")
@@ -3269,7 +3329,7 @@ def phase_coarsegrain(meta: dict, tmp: Path) -> dict:
     rec["wall_s"] = time.perf_counter() - t_phase
     emit(rec)
     return {"eval": eval_run, "checkpoint_dir": checkpoint_dir, "imagenet": data,
-            "n_classes": n_classes}
+            "n_classes": n_classes, "eigenvectors": eig_path}
 
 
 def phase_cg_benefits(meta: dict, tmp: Path, cg: dict) -> dict:
@@ -3383,7 +3443,8 @@ def phase_cg_benefits(meta: dict, tmp: Path, cg: dict) -> dict:
     if (len(rsa_rows) != expected_rows or len(keys) != expected_rows
             or not all(math.isfinite(r["score"]) for r in rsa_rows)):
         raise RuntimeError(f"curriculum_nsd_rsa: {len(rsa_rows)} rows, expected {expected_rows}")
-    rsa_run = {"launches": probe["launches"], "shapes": probe["shapes"]}
+    rsa_run = {"launches": probe["launches"], "shapes": probe["shapes"],
+               "csv": root / "rsa" / "curriculum_nsd_rsa.csv"}
     check_launches(rsa_run, expected_rdms, "checkpoints · subjects · regions · (layers + 1)")
     rec["curriculum_nsd_rsa"] = {
         "rows": len(rsa_rows), "rdm_launches": probe["launches"],
@@ -3396,6 +3457,599 @@ def phase_cg_benefits(meta: dict, tmp: Path, cg: dict) -> dict:
     rec["wall_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rsa_run
+
+
+def recon_rows(db_path, where: str) -> list:
+    """(region, subject_idx, pca_k, layer, score, ci_low, ci_high, bootstrap
+    scores) of the reconstruction rows ``where`` selects."""
+    with sqlite3.connect(str(db_path)) as conn:
+        return [(*r[:7], json.loads(r[7])) for r in conn.execute(
+            "SELECT r.region, r.subject_idx, r.pca_k, r.layer, r.score, r.ci_low, r.ci_high, "
+            "b.scores FROM results r JOIN bootstrap_distributions b "
+            "USING (run_id, compare_method) WHERE r.reconstruct_from_pcs = 1 AND " + where)]
+
+
+def check_recon_rows(rows, best: dict, ks: list, what: str) -> None:
+    """One row per (region, subject, k) with the pair's baseline layer,
+    finite scores and CIs, and 1000 finite bootstrap scores."""
+    keys = sorted((r[0], str(r[1]), r[2]) for r in rows)
+    want = sorted((reg, subj, k) for reg, subj in best for k in ks)
+    if keys != want:
+        raise RuntimeError(f"{what}: reconstruction rows {keys}, expected {want}")
+    for region, subj, k, layer, *vals, boot in rows:
+        if layer != best[(region, str(subj))]:
+            raise RuntimeError(f"{what}: {region} {subj} k={k} scored {layer}, "
+                               f"not the baseline's {best[(region, str(subj))]}")
+        if len(boot) != 1000 or not all(math.isfinite(v) for v in (*vals, *boot)):
+            raise RuntimeError(f"{what}: {region} {subj} k={k}: non-finite or missing scores")
+
+
+def recon_f64_check(x, recs: dict) -> dict:
+    """The card's reconstructions ``recs`` {k: (n, d) tensor} of the taps
+    ``x`` against the same from an f64 economy SVD on the CPU (max |Δ| over
+    the largest |value|)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    xd = x.double().cpu().numpy()
+    mean = xd.mean(axis=0)
+    u, sv, _ = np.linalg.svd(xd - mean, full_matrices=False)
+    out = {"shape": list(x.shape), "cpu_svd_s": time.perf_counter() - t0, "tol": PCA_TOL,
+           "errors": {}}
+    for k, rec in sorted(recs.items()):
+        ref = mean + u[:, :k] @ (u[:, :k].T @ (xd - mean))
+        err = float(np.abs(rec.double().cpu().numpy() - ref).max() / np.abs(ref).max())
+        out["errors"][k] = {"rel_err": err, "gap_k": float(1 - (sv[k] / sv[k - 1]) ** 2)}
+        if not err <= PCA_TOL:
+            raise RuntimeError(f"reconstruction at k={k} against the f64 SVD: {err} > {PCA_TOL}")
+    return out
+
+
+def phase_reconstruction(meta: dict, tmp: Path, data: dict) -> dict:
+    """The PC-reconstruction sweep through run_reconstruction's CLI: a
+    1000-way CustomCNN trained here, its NSD baseline eval, then the sweep
+    on NSD (e2e's fixture, 2 × 2 pairs, pca_k 1–15, 1000 bootstraps,
+    Spearman), TVSD and THINGS (their phases' fixtures, pca_k RECON["k"],
+    baseline rows written into a separate results.db). Checks the rows,
+    finite scores, 1000 bootstraps a row, one RDM launch per RDM
+    (neural + ks × unique layers), and the narrowest NSD layer's
+    reconstructions at RECON["check_k"] against an f64 SVD on the CPU.
+    Returns the sweep's run (launches, shapes), the checkpoint, the NSD
+    layers, fig. 1's RDMs and the two results.dbs."""
+    from visreps_tpu_torch import run
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.core import db
+    from visreps_tpu_torch.data import loader
+    from visreps_tpu_torch.experiments.reconstruction_analysis import run_reconstruction as rr
+
+    spec = RECON
+    rec = {"phase": "reconstruction"}
+    t_phase = time.perf_counter()
+    seconds = {}
+    checkpoint_dir = str(tmp / "recon_checkpoints")
+    trainer, seconds["train"] = timed(run.main, [
+        "--mode", "train", "--config", str(ROOT / "configs/train/base.json"), "--override",
+        "pca_labels=false", f"batchsize={TRAIN['batch']}", f"num_epochs={spec['train_epochs']}",
+        "warmup_epochs=0", "num_workers=16", "log_interval=1", "checkpoint_interval=1",
+        "log_checkpoints=true", f"checkpoint_dir={checkpoint_dir}",
+        *(f"{k}={v}" for k, v in data.items())])
+    model_file = f"checkpoint_epoch_{spec['train_epochs']}.pth"
+    losses = [h["loss"] for h in trainer.history]
+    if not losses or not all(math.isfinite(v) for v in losses) \
+            or not (Path(checkpoint_dir) / "cfg1000a" / model_file).is_file():
+        raise RuntimeError(f"1000-way training: losses {losses}, no {model_file}?")
+    rec["train"] = {"steps": len(losses), "loss": losses}
+    t0 = time.perf_counter()
+    with environ(**nsd_env(meta)):
+        base = run_eval("recon_baseline", meta, [
+            "load_model_from=checkpoint", "cfg_id=1000", f"checkpoint_dir={checkpoint_dir}",
+            f"checkpoint_model={model_file}"],
+            "cfg_id = 1000 AND reconstruct_from_pcs = 0",
+            lambda cfg_id, epoch: cfg_id == 1000 and epoch == spec["train_epochs"])
+    seconds["baseline_eval"] = time.perf_counter() - t0
+
+    common = ["--checkpoint-dir", checkpoint_dir, "--checkpoint-model", model_file,
+              "--cfg-id", "1000", "--seeds", "1", "--n-bootstrap", "1000",
+              "--compare-method", "spearman", "--num-workers", "16"]
+    subjects = list(range(E2E["n_subjects"]))
+    nsd_config = rr.DATASET_CONFIG["nsd"]
+    best = rr.query_best_layers("nsd", 1, 1000, checkpoint_dir, "spearman")
+    taps, recs, fig1, last = {}, {}, {}, {}
+    reconstruct, build = rr.reconstruct_from_pcs, rr.compute_rdm
+
+    def keep_reconstruction(acts, pcas, k):
+        out = reconstruct(acts, pcas, k)
+        (layer, x), = acts.items()
+        last.update(layer=layer, k=k, out=out[layer])
+        if k in spec["check_k"]:
+            taps[layer] = x
+            recs[(layer, k)] = out[layer]
+        return out
+
+    def keep_rdm(x, *args, **kwargs):
+        rdm = build(x, *args, **kwargs)
+        if last and x is last["out"] and last["k"] in spec["fig1_k"].values():
+            fig1.setdefault(last["k"], {})[last["layer"]] = rdm.cpu().numpy()
+        return rdm
+
+    runs = {}
+    rr.DATASET_CONFIG["nsd"] = {**nsd_config, "subjects": subjects}
+    rr.reconstruct_from_pcs, rr.compute_rdm = keep_reconstruction, keep_rdm
+    try:
+        with environ(**nsd_env(meta)), rdm_probe() as probe:
+            _, seconds["nsd_sweep"] = timed(rr.main, [
+                "--datasets", "nsd", *common, "--pca-k", *map(str, spec["nsd_k"]),
+                "--batch-size", "256"])
+        runs["nsd"] = probe
+    finally:
+        rr.DATASET_CONFIG["nsd"] = nsd_config
+        rr.reconstruct_from_pcs, rr.compute_rdm = reconstruct, build
+    main_db = db.RESULTS_DB_PATH
+    check_recon_rows(recon_rows(main_db, "neural_dataset = 'nsd' AND cfg_id = 1000"), best,
+                     spec["nsd_k"], "nsd")
+    layers = sorted(set(best.values()))
+    check_launches(runs["nsd"], len(best) + len(spec["nsd_k"]) * len(layers),
+                   "pairs + ks · unique layers")
+    narrow = min(taps, key=lambda l: taps[l].shape[1])
+    rec["f64_check"] = {"layer": narrow, **recon_f64_check(
+        taps[narrow], {k: recs[(narrow, k)] for k in spec["check_k"]})}
+    taps.clear(), recs.clear()
+
+    # TVSD and THINGS: their baseline rows in a results.db of their own
+    seeded_db = tmp / "recon_baselines.db"
+    args = recon_args(checkpoint_dir, model_file)
+    tvsd = fixture.ensure_tvsd_fixture(tmp / "fixture", **TVSD)
+    things = fixture.ensure_things_fixture(tmp / "fixture", **THINGS)
+    baselines = {("tvsd", r, s): layer for r, layer in spec["tvsd_layers"].items()
+                 for s in (0, 1)}
+    baselines[("things-behavior", "N/A", "N/A")] = spec["things_layer"]
+    cwd, home = os.getcwd(), os.environ.get("BONNER_DATASETS_HOME")
+    routes = {}
+    db.RESULTS_DB_PATH = seeded_db
+    try:
+        for (dataset, region, subj), layer in baselines.items():
+            cfg = rr.build_cfg(args, 1, dataset).merge(
+                {"region": region, "subject_idx": subj, "reconstruct_from_pcs": False})
+            db.save_results([{"layer": layer, "compare_method": "spearman", "score": 1.0,
+                              "analysis": "rsa"}], cfg)
+        for dataset, meta_d, batch in (("tvsd", tvsd, 256), ("things-behavior", things, 512)):
+            os.chdir(meta_d["root"])  # both read datasets/neural/... relative to it
+            if dataset == "tvsd":
+                os.environ["BONNER_DATASETS_HOME"] = meta_d["bonner_home"]
+            before = Counter(loader.ROUTES)
+            with rdm_probe() as probe:
+                _, seconds[f"{dataset}_sweep"] = timed(rr.main, [
+                    "--datasets", dataset, *common, "--pca-k", *map(str, spec["k"]),
+                    "--batch-size", str(batch), "--uint8-transfer"])
+            runs[dataset] = probe
+            routes[dataset] = dict(Counter(loader.ROUTES) - before)
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        db.RESULTS_DB_PATH = main_db
+        if home is None:
+            os.environ.pop("BONNER_DATASETS_HOME", None)
+        else:
+            os.environ["BONNER_DATASETS_HOME"] = home
+    # THINGS: every id decoded once (the first pass), the exact pass from the cache
+    n_things = THINGS["n_concepts"] * THINGS["imgs_per_concept"]
+    things_routes = routes["things-behavior"]
+    if things_routes.get("pil", 0) + things_routes.get("native", 0) != n_things \
+            or things_routes.get("cache", 0) != n_things:
+        raise RuntimeError(f"THINGS sweep: decode routes {things_routes}, expected "
+                           f"{n_things} decoded and {n_things} from the cache")
+    for dataset in ("tvsd", "things-behavior"):
+        pairs = {(r, str(s)): l for (d, r, s), l in baselines.items() if d == dataset}
+        check_recon_rows(recon_rows(seeded_db, f"neural_dataset = '{dataset}'"), pairs,
+                         spec["k"], dataset)
+        check_launches(runs[dataset], len(pairs) + len(spec["k"]) * len(set(pairs.values())),
+                       "pairs + ks · unique layers")
+
+    rec["nsd_layers"] = {f"{r} {s}": l for (r, s), l in best.items()}
+    rec["rows"] = {"nsd": len(best) * len(spec["nsd_k"]),
+                   "tvsd": 6 * len(spec["k"]), "things-behavior": len(spec["k"])}
+    rec["scores"] = {d: [r[:5] for r in recon_rows(
+        main_db if d == "nsd" else seeded_db, f"neural_dataset = '{d}'")]
+        for d in ("nsd", "tvsd", "things-behavior")}
+    rec["rdm_launches"] = {d: r["launches"] for d, r in runs.items()}
+    rec["rdm_shapes"] = [[*k, v] for k, v in sorted(
+        sum((r["shapes"] for r in runs.values()), Counter()).items())]
+    rec["decode_routes"] = routes
+    rec["peak_mem_gb"] = max(r["peak_mem_gb"] for r in runs.values())
+    rec["seconds"] = seconds
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    sweep = {"launches": sum(r["launches"] for r in runs.values()),
+             "shapes": sum((r["shapes"] for r in runs.values()), Counter())}
+    return {"runs": [base, sweep], "checkpoint_dir": checkpoint_dir, "nsd_layers": best,
+            "fig1": fig1, "main_db": main_db, "seeded_db": seeded_db,
+            "things_layer": spec["things_layer"]}
+
+
+def recon_args(checkpoint_dir: str, model_file: str):
+    """run_reconstruction's arguments for ``build_cfg``."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(cfg_id=1000, checkpoint_dir=checkpoint_dir, checkpoint_model=model_file,
+                           compare_method="spearman", n_bootstrap=1000, batch_size=256,
+                           num_workers=16, uint8_transfer=True)
+
+
+def xor_rdm(codes, weights):
+    """Σ_k w_k·xor(b_ik, b_jk) / Σw of (n, bits) 0/1 codes on the CPU: an
+    integer sum over bits, then one f32 division."""
+    import numpy as np
+
+    w = np.asarray(weights, np.int64)
+    total = np.zeros((len(codes), len(codes)), np.int64)
+    for j in range(codes.shape[1]):
+        total += w[j] * (codes[:, j][:, None] != codes[:, j][None, :])
+    return total.astype(np.float32) / np.float32(w.sum())
+
+
+def phase_binary_pc_rsa(meta: dict, tmp: Path, eigenvectors: Path) -> dict:
+    """Binary-PC RSA through its CLI on the card: the coarsegrain phase's
+    eigenvectors, seeded AlexNet (``--pretrained none``), e2e's subjects and
+    regions, n_pcs 2–20, Spearman and Kendall. Checks 304 finite rows,
+    each Hamming RDM of the first subject at BINARY["check_pcs"] bit-equal
+    to a CPU XOR sum of the same codes, each neural RDM against the plain
+    version of the same rows, and one RDM launch per neural RDM (the
+    Hamming RDMs launch none)."""
+    import numpy as np
+    import torch
+
+    from visreps_tpu_torch.experiments.binary_pc_rsa import main as binary
+    from visreps_tpu_torch.ops import rdm_kernel
+
+    spec = BINARY
+    rec = {"phase": "binary_pc_rsa"}
+    t_phase = time.perf_counter()
+    subjects = list(range(E2E["n_subjects"]))
+    hamming, neural = [], []
+    binary_rdm, build = binary.binary_rdm, binary.compute_rdm
+
+    def keep_hamming(codes, weighted):
+        out = binary_rdm(codes, weighted)
+        if len(hamming) < 2 * len(binary.REGIONS) * len(spec["check_pcs"]) \
+                and codes.shape[1] in spec["check_pcs"]:
+            hamming.append((codes.cpu().numpy(), weighted, out.cpu().numpy()))
+        return out
+
+    def keep_neural(x, *args, **kwargs):
+        out = build(x, *args, **kwargs)
+        neural.append((x, out))
+        return out
+
+    out_csv = tmp / "binary_pc_rsa" / "binary_pc_rsa.csv"
+    binary.binary_rdm, binary.compute_rdm = keep_hamming, keep_neural
+    try:
+        with environ(**nsd_env(meta)), rdm_probe() as probe:
+            rows, seconds = timed(binary.main, [
+                "--eigenvectors", str(eigenvectors), "--pretrained", "none",
+                "--subjects", *map(str, subjects), "--n-pcs", *map(str, spec["n_pcs"]),
+                "--correlations", *spec["correlations"], "--batch-size", "256",
+                "--num-workers", "8", "--out", str(out_csv)])
+    finally:
+        binary.binary_rdm, binary.compute_rdm = binary_rdm, build
+    n_rows = len(subjects) * len(spec["n_pcs"]) * len(binary.REGIONS) * 2 * len(spec["correlations"])
+    if len(rows) != n_rows or not all(math.isfinite(r["score"]) for r in rows):
+        raise RuntimeError(f"binary_pc_rsa: {len(rows)} rows (expected {n_rows}) or non-finite")
+    if len(hamming) != 2 * len(binary.REGIONS) * len(spec["check_pcs"]):
+        raise RuntimeError(f"binary_pc_rsa: {len(hamming)} Hamming RDMs captured")
+    for codes, weighted, got in hamming:
+        w = np.arange(codes.shape[1], 0, -1) if weighted else np.ones(codes.shape[1])
+        if not np.array_equal(got, xor_rdm(codes, w)):
+            raise RuntimeError(f"Hamming RDM ({codes.shape}, weighted {weighted}) differs from "
+                               "the CPU XOR sum")
+    plain = []
+    for x, out in neural:
+        xc = x.float() - x.float().mean(dim=1, keepdim=True)
+        std = torch.sqrt((xc * xc).mean(dim=1) + 1e-12)
+        std = torch.where(std < 1e-11, torch.ones_like(std), std)
+        ref = rdm_kernel.rdm_from_centered_reference(xc, std)
+        plain.append((out - ref).abs().max().item())
+    tol = tolerance(neural[0][0].shape[1], "float32")
+    if not max(plain) <= tol:
+        raise RuntimeError(f"binary_pc_rsa neural RDMs against the plain version: {plain} > {tol}")
+    check_launches(probe, len(subjects) * len(binary.REGIONS), "subjects · regions (neural)")
+    rec.update({"rows": len(rows), "seconds": seconds, "hamming_checked": len(hamming),
+                "hamming_bit_equal": True, "neural_vs_plain_max": max(plain), "tol": tol,
+                "rdm_launches": probe["launches"],
+                "rdm_shapes": [[*k, v] for k, v in sorted(probe["shapes"].items())],
+                "peak_mem_gb": probe["peak_mem_gb"],
+                "mean_score": {f"{c} weighted={w}": float(np.mean(
+                    [r["score"] for r in rows if r["correlation"] == c and r["weighted"] == w]))
+                    for c in spec["correlations"] for w in (True, False)},
+                "wall_s": time.perf_counter() - t_phase})
+    emit(rec)
+    return {"launches": probe["launches"], "shapes": probe["shapes"], "csv": out_csv}
+
+
+def export_results(db_paths: list, where: list, out_csv: Path) -> Path:
+    """The ``results`` rows of each results.db (its ``where``) as one long
+    CSV (blank for NULL), the layout the figure CLIs read."""
+    rows, names = [], None
+    for path, cond in zip(db_paths, where):
+        with sqlite3.connect(str(path)) as conn:
+            cur = conn.execute(f"SELECT * FROM results WHERE {cond}")
+            names = names or [d[0] for d in cur.description]
+            rows += cur.fetchall()
+    out_csv.parent.mkdir(parents=True, exist_ok=True)
+    with open(out_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(names)
+        w.writerows(["" if v is None else v for v in r] for r in rows)
+    return out_csv
+
+
+def db_rows_of(sources: list, columns: str, cond: str, params=()) -> list:
+    """``columns`` of the ``results`` rows of each (results.db, where) in
+    ``sources`` that also meet ``cond``."""
+    rows = []
+    for path, where in sources:
+        with sqlite3.connect(str(path)) as conn:
+            rows += conn.execute(f"SELECT {columns} FROM results WHERE ({where}) AND ({cond})",
+                                 params).fetchall()
+    return rows
+
+
+def seed_means(pairs) -> list:
+    """[mean score of each seed, seeds sorted] of (seed, score) pairs."""
+    by = {}
+    for seed, score in pairs:
+        by.setdefault(seed, []).append(score)
+    return [sum(v) / len(v) for _, v in sorted(by.items())]
+
+
+def plain_conditions(sources: list, region, pc_layer: str, k1k_layer: str) -> dict:
+    """The bar plots' condition scores straight from results.db (figutils
+    ``assemble_conditions`` on the exported CSV): per-seed means of the
+    untrained (epoch 0) and 1000-class (epoch 20, no PCA labels) rows at
+    ``k1k_layer`` and of each PCA granularity's (epoch 20) at ``pc_layer``,
+    of one region or of every row."""
+    cond, params = ("lower(region) = ?", (region,)) if region else ("1", ())
+    rows = db_rows_of(sources, "seed, epoch, lower(layer), pca_labels, pca_n_classes, score",
+                      cond, params)
+    k1k, pc = k1k_layer.lower(), pc_layer.lower()
+    out = {"Untrained": seed_means((r[0], r[5]) for r in rows if r[2] == k1k and r[1] == 0)}
+    for n in (2, 4, 8, 16, 32, 64):
+        pairs = [(r[0], r[5]) for r in rows
+                 if r[2] == pc and r[1] == 20 and r[3] and r[4] == n]
+        if pairs:
+            out[f"{n} Classes"] = seed_means(pairs)
+    out["1000 Classes"] = seed_means((r[0], r[5]) for r in rows
+                                     if r[2] == k1k and r[1] == 20 and not r[3])
+    return out
+
+
+def plain_recon_matrix(sources: list, layer: str, max_k: int = 20):
+    """Fig. 3's (seeds, max_k) matrix straight from results.db: the mean
+    score of each (seed, pca_k) among the reconstruction rows at
+    ``layer``, NaN where a k has none."""
+    import numpy as np
+
+    rows = db_rows_of(sources, "seed, pca_k, score",
+                      "reconstruct_from_pcs = 1 AND lower(layer) = ?", (layer.lower(),))
+    seeds = sorted({r[0] for r in rows})
+    out = np.full((len(seeds), max_k), np.nan)
+    by = {}
+    for seed, k, score in rows:
+        by.setdefault((seed, k), []).append(score)
+    for (seed, k), v in by.items():
+        if 1 <= k <= max_k:
+            out[seeds.index(seed), k - 1] = sum(v) / len(v)
+    return out
+
+
+def close_series(a, b, rtol: float = 1e-12) -> bool:
+    """Equal keys and order, NaN at the same places, values within rtol
+    (and 1e-15 absolute, for means that cancel: sums in another order)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            close_series(a[k], b[k], rtol) for k in a)
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b)) and bool(
+        np.allclose(a[~np.isnan(a)], b[~np.isnan(b)], rtol=rtol, atol=1e-15))
+
+
+def same_series(a, b) -> bool:
+    """Equal nested series: values bit for bit, NaN where the other has NaN."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_series(a[k], b[k]) for k in a))
+    if hasattr(a, "columns"):  # a figutils Table
+        return same_series(a.columns, b.columns)
+    if isinstance(a, (list, tuple, np.ndarray)) or isinstance(b, (list, tuple, np.ndarray)):
+        a, b = np.asarray(a, dtype=object), np.asarray(b, dtype=object)
+        return a.shape == b.shape and all(same_series(x, y) for x, y in zip(a.flat, b.flat))
+    if isinstance(a, float) and isinstance(b, float) and math.isnan(a) and math.isnan(b):
+        return True
+    return a == b
+
+
+def phase_figures(tmp: Path, recon: dict, binary_csv: Path, curriculum_csv: Path) -> None:
+    """The paper's figure pipeline on this run's results: fig. 1 from four
+    RSM npz files of the NSD sweep's card RDMs (k 1 and 2 as the "1K"
+    pair, 8 and 15 as the coarse pair) on the card, its Kendall scores
+    against the CPU's on the first layer; then a long CSV exported from
+    this run's results.db (every row) and the TVSD / THINGS sweep rows,
+    read by figs. 2–4 and the bar plots, module 2 on results.db, the
+    binary-PC figure on its CSV and plot_curriculum_rsa on curriculum RSA's
+    rows (depth and model names added). Each CLI's series must equal the
+    same data functions called here on the same input; module 2's NSD
+    curve, figs. 2 and 3's matrices and both bar plots' conditions must
+    equal a plain recomputation from results.db.
+    Prints which figures were not drawn (those drawn need matplotlib)."""
+    import numpy as np
+
+    from visreps_tpu_torch.experiments.binary_pc_rsa import visualize
+    from visreps_tpu_torch.experiments.coarse_grain_benefits import (
+        curriculum_nsd_rsa, plot_curriculum_rsa)
+    from visreps_tpu_torch.experiments.neurips_2025 import figutils
+    from visreps_tpu_torch.experiments.neurips_2025.fig1 import model_reps_rsa_comparisons as fig1
+    from visreps_tpu_torch.experiments.neurips_2025.fig2 import bar_plot_nsd, reconstructed_rsa_nsd
+    from visreps_tpu_torch.experiments.neurips_2025.fig3 import (
+        bar_plot_things, full_vs_pcs_things, reconstructed_rsa_things)
+    from visreps_tpu_torch.experiments.neurips_2025.fig4 import full_vs_pcs_nsd
+    from visreps_tpu_torch.experiments.reconstruction_analysis import plot as recon_plot
+
+    out = tmp / "figures"
+    rec = {"phase": "figures", "matplotlib": figutils.matplotlib_available()}
+    t_phase = time.perf_counter()
+    checks = {}
+
+    # fig. 1 on the card, and its first layer on the CPU
+    base = out / "RSMs" / "pca4cls"
+    base.mkdir(parents=True)
+    names = {"f1": "rsms_nsd_pca_labels_False_pca_k_2_cfgid_1_seed_1.npz",
+             "f2": "rsms_nsd_pca_labels_False_pca_k_2_cfgid_1_seed_2.npz",
+             "t1": "rsms_nsd_pca_labels_True_cfgid_2_seed_1.npz",
+             "t2": "rsms_nsd_pca_labels_True_cfgid_2_seed_2.npz"}
+    rsms = {key: recon["fig1"][k] for key, k in RECON["fig1_k"].items()}
+    for key, name in names.items():
+        np.savez(base / name, **rsms[key])
+    t0 = time.perf_counter()
+    series = fig1.main(["--base_rsm_dir", str(out / "RSMs"), "--output_dir", str(out / "fig1")])
+    rec["fig1_s"] = time.perf_counter() - t0
+    first = series["layers"][0]
+    t0 = time.perf_counter()
+    cpu = fig1.compare_layers(*({first: rsms[k][first]} for k in ("f1", "f2", "t1", "t2")),
+                              "Kendall", device="cpu")
+    rec["fig1_cpu_s"] = time.perf_counter() - t0
+    diff = max(abs(series[k][0] - cpu[i + 1][0]) for i, k in enumerate(("f1f2", "t1t2", "f1t1")))
+    rec["fig1"] = {**series, "cpu_max_abs_diff": diff, "tol": FIG1_TOL}
+    if not diff <= FIG1_TOL:
+        raise RuntimeError(f"fig1 Kendall scores: card against CPU {diff} > {FIG1_TOL}")
+
+    # the long CSV and the figure CLIs
+    sources = [(recon["main_db"], "1"), (recon["seeded_db"], "reconstruct_from_pcs = 1")]
+    long_csv = export_results(*map(list, zip(*sources)), out / "results_long.csv")
+    table = figutils.read_csv(long_csv)
+    rec["long_csv_rows"] = len(table)
+    best = recon["nsd_layers"]
+    ventral = best[("ventral visual stream", "0")]
+    early = best[("early visual stream", "0")]
+    things = recon["things_layer"]
+    runs = {
+        "fig2_recon": (reconstructed_rsa_nsd.main, [
+            "--recon_csv", str(long_csv), "--baseline_csv", str(long_csv), "--layer", ventral,
+            "--out", str(out / "fig2" / "recon.png")],
+            lambda: {"recon": reconstructed_rsa_nsd.recon_matrix(
+                table, "ventral visual stream", ventral, "Spearman"),
+                "untrained": reconstructed_rsa_nsd.baseline_band(
+                    table, "ventral visual stream", ventral, "Spearman", epoch=0),
+                "best_pc": reconstructed_rsa_nsd.baseline_band(
+                    table, "ventral visual stream", ventral, "Spearman", epoch=20,
+                    pca_n_classes=64)}),
+        "fig2_bar": (bar_plot_nsd.main, [
+            "--csv", str(long_csv), "--pc_layer", early, "--k1k_layer", early,
+            "--out", str(out / "fig2" / "bar.png")],
+            lambda: figutils.assemble_conditions(table.take(figutils.eq(
+                figutils.str_lower(table["region"]), "early visual stream")), early, early)),
+        "fig3_recon": (reconstructed_rsa_things.main, [
+            "--recon_csv", str(long_csv), "--baseline_csv", str(long_csv), "--layer", things,
+            "--out", str(out / "fig3" / "recon.png")],
+            lambda: {"recon": reconstructed_rsa_things.recon_matrix(table, things, "Spearman"),
+                     "untrained": reconstructed_rsa_things.baseline_band(
+                         table, things, "Spearman", epoch=0),
+                     "best_pc": reconstructed_rsa_things.baseline_band(
+                         table, things, "Spearman", epoch=20, pca_n_classes=64)}),
+        "fig3_full": (full_vs_pcs_things.main, [
+            "--csv", str(long_csv), "--out", str(out / "fig3" / "full.png")],
+            lambda: dict(zip(("initial", "final", "pca"), full_vs_pcs_things.prepare_series(
+                table, "Spearman", full_vs_pcs_things.LAYER_ORDER)))),
+        "fig3_bar": (bar_plot_things.main, [
+            "--csv", str(long_csv), "--pc_layer", things, "--k1k_layer", things,
+            "--out", str(out / "fig3" / "bar.png")],
+            lambda: figutils.assemble_conditions(table, things, things)),
+        "fig4": (full_vs_pcs_nsd.main, [
+            "--csv", str(long_csv), "--out", str(out / "fig4" / "full.png")],
+            lambda: dict(zip(("initial", "final", "pca"), full_vs_pcs_things.prepare_series(
+                table.take(figutils.eq(figutils.str_lower(table["region"]),
+                                       "ventral visual stream")),
+                "Spearman", full_vs_pcs_things.LAYER_ORDER)))),
+        "reconstruction_plot": (recon_plot.main, [
+            "--db", str(recon["main_db"]), "--out_dir", str(out / "recon")],
+            lambda: {name: recon_plot.dataset_series(recon["main_db"], name, regions)
+                     for name, regions, _ in recon_plot.DATASETS}),
+    }
+    depth = curriculum_nsd_rsa.normalized_depth(curriculum_nsd_rsa.LAYERS)
+    model_names = {"untrained": None, "64way": plot_curriculum_rsa.MODEL_NAMES[1],
+                   "64to1000": plot_curriculum_rsa.MODEL_NAMES[2]}
+    with open(curriculum_csv) as f:
+        cur_rows = [{"model_name": model_names[r["model_name"]], "region": r["region"],
+                     "depth_normalized": depth[r["layer"]], "rsa_score": r["score"]}
+                    for r in csv.DictReader(f) if model_names.get(r["model_name"])]
+    cur_csv = out / "curriculum_rsa_depth.csv"
+    with open(cur_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(cur_rows[0]))
+        w.writeheader()
+        w.writerows(cur_rows)
+    runs["curriculum"] = (plot_curriculum_rsa.main, [
+        "--input", str(cur_csv), "--out", str(out / "curriculum.png")],
+        lambda: plot_curriculum_rsa.curves(cur_rows))
+    runs["binary_visualize"] = (visualize.main, [
+        "--results", str(binary_csv), "--cnn_baseline", str(out / "no_cnn_baseline.csv"),
+        "--out_dir", str(out / "binary")],
+        lambda: {r: visualize.region_series(r, visualize.average_over_subjects(
+            visualize._read_csv(binary_csv)), {}) for r in visualize.REGIONS})
+    outputs = {}
+    for name, (cli, argv, again) in runs.items():
+        outputs[name] = got = cli(argv)
+        checks[name] = same_series(figutils._jsonable(got), figutils._jsonable(again()))
+    rec["series_equal"] = checks
+    if not all(checks.values()):
+        raise RuntimeError(f"figure series differ from the data functions: {checks}")
+
+    # the bar plots' conditions and fig. 3's matrix against results.db directly
+    direct = {
+        "fig2_bar": (outputs["fig2_bar"],
+                     plain_conditions(sources, "early visual stream", early, early)),
+        "fig3_bar": (outputs["fig3_bar"], plain_conditions(sources, None, things, things)),
+        "fig3_recon": (reconstructed_rsa_things.recon_matrix(table, things, "Spearman"),
+                       plain_recon_matrix(sources, things)),
+    }
+    rec["vs_results_db"] = {name: close_series(got, want) for name, (got, want) in direct.items()}
+    if not all(rec["vs_results_db"].values()):
+        raise RuntimeError(f"figure series differ from results.db: "
+                           f"{ {n: direct[n] for n, ok in rec['vs_results_db'].items() if not ok} }")
+
+    # module 2's NSD curve and fig. 2's matrix against results.db directly
+    with sqlite3.connect(str(recon["main_db"])) as conn:
+        direct = conn.execute(
+            "SELECT region, pca_k, subject_idx, score FROM results WHERE reconstruct_from_pcs = 1 "
+            "AND cfg_id = 1000 AND neural_dataset = 'nsd' AND compare_method = 'spearman' "
+            "ORDER BY region, pca_k, subject_idx").fetchall()
+    curves = recon_plot.dataset_series(recon["main_db"], "nsd", recon_plot.DATASETS[0][1])
+    for region in ("early visual stream", "ventral visual stream"):
+        by_k = {}
+        for reg, k, _, score in direct:
+            if reg == region:
+                by_k.setdefault(k, []).append(score)
+        want = [sum(v) / len(v) for _, v in sorted(by_k.items())]
+        got = curves[region]["curve"]["mean"].tolist()
+        if got != want or curves[region]["curve"]["pca_k"].tolist() != sorted(by_k):
+            raise RuntimeError(f"module 2's {region} curve {got} is not results.db's {want}")
+    fig2 = reconstructed_rsa_nsd.recon_matrix(table, "ventral visual stream", ventral, "Spearman")
+    want = np.full(20, np.nan)
+    ventral_k = {}
+    for reg, k, subj, score in direct:
+        if reg == "ventral visual stream" and best[(reg, str(subj))] == ventral:
+            ventral_k.setdefault(k, []).append(score)
+    for k, v in ventral_k.items():
+        want[k - 1] = sum(v) / len(v)
+    rec["fig2_vs_db_max_abs"] = float(np.nanmax(np.abs(fig2[0] - want)))
+    if fig2.shape != (1, 20) or not np.array_equal(np.isnan(fig2[0]), np.isnan(want)) \
+            or not rec["fig2_vs_db_max_abs"] <= 1e-12:  # the CSV's 17 digits, parsed as pandas does
+        raise RuntimeError(f"fig2's matrix {fig2} is not results.db's {want}")
+    rec["not_drawn"] = [] if rec["matplotlib"] else sorted(
+        str(p.with_suffix(".png").relative_to(out)) for p in out.rglob("*.json"))
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
 
 
 def main() -> int:
@@ -3430,7 +4084,7 @@ def main() -> int:
         rsa_runs.append(phase_tvsd(tmp))
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
         rsa_runs.append(phase_ref_ckpt(meta, tmp))
-        # VGG16's eval runs at NSD's full 73,000 stimuli in nsd73k_vgg16 below
+        # VGG16's eval runs at 37,000 NSD stimuli in nsd73k_vgg16 below
         rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in ("ResNet50", "ViTBase"))
         rsa_runs.extend(phase(meta, rsa_runs[0])
                         for phase in (phase_kendall, phase_dense_boot, phase_pca))
@@ -3443,7 +4097,13 @@ def main() -> int:
         phase_encoding(tmp)
         cg = phase_coarsegrain(meta, tmp)
         rsa_runs.append(cg["eval"])
-        rsa_runs.append(phase_cg_benefits(meta, tmp, cg))
+        cg_rsa = phase_cg_benefits(meta, tmp, cg)
+        rsa_runs.append(cg_rsa)
+        recon = phase_reconstruction(meta, tmp, train_data)
+        rsa_runs.extend(recon["runs"])
+        binary = phase_binary_pc_rsa(meta, tmp, cg["eigenvectors"])
+        rsa_runs.append(binary)
+        phase_figures(tmp, recon, binary["csv"], cg_rsa["csv"])
         phase_path(sum((r["shapes"] for r in rsa_runs), Counter()), records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -268,11 +268,18 @@ class TestStandalone:
             "{'visreps_tpu_torch.experiments.coarse_grain_benefits.' + m for m in ('utils', "
             "'corruptions', 'linear_probe', 'few_shot', 'class_selectivity', "
             "'augmentation_invariance', 'imagenet_c_robustness', 'curriculum_finetuning', "
-            "'curriculum_nsd_rsa')}\n"
+            "'curriculum_nsd_rsa', 'plot_curriculum_rsa')} | "
+            "{'visreps_tpu_torch.experiments.' + m for m in ("
+            "'reconstruction_analysis.run_reconstruction', 'reconstruction_analysis.plot', "
+            "'binary_pc_rsa.main', 'binary_pc_rsa.visualize', 'neurips_2025.figutils', "
+            "'neurips_2025.fig1.model_reps_rsa_comparisons', "
+            "'neurips_2025.fig2.reconstructed_rsa_nsd', 'neurips_2025.fig2.bar_plot_nsd', "
+            "'neurips_2025.fig3.reconstructed_rsa_things', 'neurips_2025.fig3.full_vs_pcs_things', "
+            "'neurips_2025.fig3.bar_plot_things', 'neurips_2025.fig4.full_vs_pcs_nsd')}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu', 'pandas', "
-            "'sklearn', 'matplotlib')]\n"
+            "'sklearn', 'matplotlib', 'seaborn', 'experiments', 'plotters')]\n"
             "assert not bad, bad\n")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=300)
@@ -280,7 +287,8 @@ class TestStandalone:
 
     def test_no_jax_package_imports_in_source(self):
         pattern = re.compile(
-            r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|transformers|visreps_tpu)(\.|\s|$)")
+            r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|transformers|visreps_tpu|pandas|seaborn"
+            r"|experiments|plotters)(\.|\s|$)")
         sources = [p for p in sorted(PKG.rglob("*.py"))
                    if "_build" not in p.relative_to(PKG).parts]  # git-ignored build output
         assert len(sources) > 20

@@ -1,0 +1,1 @@
+"""Fig. 4 of the paper (port of ``experiments/neurips_2025/fig4/``)."""

@@ -41,6 +41,10 @@ class PCATransform:
     def reconstruct(self, x: torch.Tensor) -> torch.Tensor:
         return self.inverse_transform(self.transform(x))
 
+    def top(self, k: int) -> "PCATransform":
+        """The fit restricted to its first k components."""
+        return PCATransform(self.mean, self.components[:k], self.explained_variance[:k])
+
 
 # Columns (or rows) of the centred matrix widened to f64 at a time.
 _BLOCK = 1 << 18
