@@ -190,29 +190,62 @@ class TestProbes:
             clf.score(scaler.transform(x_te), y_te))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: under a parallel test run every
+    worker's default of one thread per core oversubscribes the machine,
+    and the probes' d × d eighs then wait on descheduled threads (two
+    linear-probe runs took 2,025 s in each of 6 concurrent processes,
+    21 s with one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _linear_probe(common, tmp_path, ckpt_dir, tiny_tree):
+    top1 = tlin.main(common)
+    assert 0.0 <= top1 <= 100.0
+
+
+def _few_shot(common, tmp_path, ckpt_dir, tiny_tree):
+    shots = tfew.main([*common, "--k-shot", "1", "2", "--episodes", "3"])
+    assert set(shots) == {1, 2} and all(np.isfinite(v).all() for v in shots.values())
+
+
+def _selectivity(common, tmp_path, ckpt_dir, tiny_tree):
+    # fc taps only: SRP of a conv tap at 224 px would build a matrix of GBs here
+    sel = tsel.main([*common, "--layers", "fc1_post", "fc2_post"])
+    assert set(sel) == {"fc1_post", "fc2_post"}
+    assert all(((s >= 0) & (s <= 1)).all() for s in sel.values())
+
+
+def _invariance(common, tmp_path, ckpt_dir, tiny_tree):
+    inv = taug.main([*common[:-2], "--batch-size", "4", "--max-batches", "2",
+                     "--layers", "fc1", "fc2"])
+    assert set(inv) == {"fc1_pre", "fc1_post", "fc2_pre", "fc2_post"}
+    assert all(len(v) == 8 and np.isfinite(v).all() for v in inv.values())
+
+
+def _imagenet_c(common, tmp_path, ckpt_dir, tiny_tree):
+    rows = timc.main(["--checkpoints", f"m={ckpt_dir}/cfg64a/checkpoint_epoch_20.pth",
+                      "--probe-dataset", f"{tiny_tree}/train", "--n-images", "24",
+                      "--image-size", "64", "--corruptions", "gaussian_noise", "pixelate",
+                      "--out", str(tmp_path / "c.csv"), "--device", "cpu"])
+    assert [r["corruption"] for r in rows] == ["gaussian_noise", "pixelate"]
+    assert len((tmp_path / "c.csv").read_text().splitlines()) == 3
+
+
 class TestCLIs:
-    def test_benefit_mains(self, ckpt_dir, tiny_tree, tmp_path):
+    @pytest.mark.parametrize("run", [_linear_probe, _few_shot, _selectivity, _invariance,
+                                     _imagenet_c],
+                             ids=["linear_probe", "few_shot", "selectivity", "invariance",
+                                  "imagenet_c"])
+    def test_benefit_mains(self, run, ckpt_dir, tiny_tree, tmp_path):
         """Each benefit CLI of the port end to end on the CPU."""
         common = ["--checkpoint-dir", str(ckpt_dir), "--cfg-id", "64",
                   "--probe-dataset", tiny_tree, "--device", "cpu", "--batch-size", "8"]
-        top1 = tlin.main(common)
-        assert 0.0 <= top1 <= 100.0
-        shots = tfew.main([*common, "--k-shot", "1", "2", "--episodes", "3"])
-        assert set(shots) == {1, 2} and all(np.isfinite(v).all() for v in shots.values())
-        # fc taps only: SRP of a conv tap at 224 px would build a matrix of GBs here
-        sel = tsel.main([*common, "--layers", "fc1_post", "fc2_post"])
-        assert set(sel) == {"fc1_post", "fc2_post"}
-        assert all(((s >= 0) & (s <= 1)).all() for s in sel.values())
-        inv = taug.main([*common[:-2], "--batch-size", "4", "--max-batches", "2",
-                         "--layers", "fc1", "fc2"])
-        assert set(inv) == {"fc1_pre", "fc1_post", "fc2_pre", "fc2_post"}
-        assert all(len(v) == 8 and np.isfinite(v).all() for v in inv.values())
-        rows = timc.main(["--checkpoints", f"m={ckpt_dir}/cfg64a/checkpoint_epoch_20.pth",
-                          "--probe-dataset", f"{tiny_tree}/train", "--n-images", "24",
-                          "--image-size", "64", "--corruptions", "gaussian_noise", "pixelate",
-                          "--out", str(tmp_path / "c.csv"), "--device", "cpu"])
-        assert [r["corruption"] for r in rows] == ["gaussian_noise", "pixelate"]
-        assert len((tmp_path / "c.csv").read_text().splitlines()) == 3
+        run(common, tmp_path, ckpt_dir, tiny_tree)
 
 
 class TestCurriculum:

@@ -275,7 +275,14 @@ class TestStandalone:
             "'neurips_2025.fig1.model_reps_rsa_comparisons', "
             "'neurips_2025.fig2.reconstructed_rsa_nsd', 'neurips_2025.fig2.bar_plot_nsd', "
             "'neurips_2025.fig3.reconstructed_rsa_things', 'neurips_2025.fig3.full_vs_pcs_things', "
-            "'neurips_2025.fig3.bar_plot_things', 'neurips_2025.fig4.full_vs_pcs_nsd')}\n"
+            "'neurips_2025.fig3.bar_plot_things', 'neurips_2025.fig4.full_vs_pcs_nsd')} | "
+            "{'visreps_tpu_torch.experiments.representation_analysis.' + m for m in ("
+            "'utils', 'dim_metrics', 'dim_plots', 'dimensionality', 'variance_ratio', "
+            "'nearest_neighbors', 'rsm_comparison', 'task_brain_alignment', 'two_pcs_compare', "
+            "'run_all')} | "
+            "{'visreps_tpu_torch.experiments.semantic_analysis.' + m for m in ("
+            "'fine_grained_structure', 'semantic_alignment', 'pc_semantic_analysis', "
+            "'plot_semantic_classes_umap')}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu', 'pandas', "

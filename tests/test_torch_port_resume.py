@@ -47,6 +47,18 @@ from visreps_tpu_torch.train import trainer as ttrainer
 from visreps_tpu_torch.train.optim import Optimizer
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread: under a parallel test run every
+    worker's default of one thread per core oversubscribes the machine and
+    each op waits on descheduled threads (the CLI test took 3.5 s alone
+    and 111 s in a 6-worker run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny_imagenet(tmp_path_factory):
     """Tiny-ImageNet layout: 3 classes × 8 noisy class-coloured 64 px JPEGs
