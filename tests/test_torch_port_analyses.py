@@ -55,6 +55,16 @@ TAP_TOL = 1e-4
 SRP_TOL = 1e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(case: str):
     rng = np.random.RandomState(0)
     if case == "ties":  # integer values: many ties, ranked in input order

@@ -35,6 +35,16 @@ SRP_K = 64
 ARCH = {"conv_trainable": "11111", "fc_trainable": "111", "pooling_type": "max", "dropout": 0.5}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _eval_cfg(cls, checkpoint_dir):
     return cls({
         "mode": "eval", "seed": 1, "neural_dataset": "nsd", "subject_idx": [0, 1],

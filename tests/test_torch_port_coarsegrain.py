@@ -57,6 +57,16 @@ FEAT_TOL = 1e-4
 TOWER_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def gapped_features(n: int, d: int = 64, seed: int = 0) -> np.ndarray:
     """(n, d) float32 rows with a gapped spectrum (variances 4·0.85^i in a
     random basis) around a mean of 0.5. Float32 roundoff in a fit is

@@ -33,6 +33,16 @@ RDM_TOL = 5e-4
 CORR_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def both_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cross_model")

@@ -43,6 +43,16 @@ TINY = {"N_SHARED": 12, "N_UNIQUE": 20, "N_SUBJECTS": 2, "REGIONS": ["early", "v
 SRP_K = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(cls):
     return cls({
         "mode": "eval", "seed": 1, "neural_dataset": "nsd", "subject_idx": [0, 1],
@@ -282,7 +292,16 @@ class TestStandalone:
             "'run_all')} | "
             "{'visreps_tpu_torch.experiments.semantic_analysis.' + m for m in ("
             "'fine_grained_structure', 'semantic_alignment', 'pc_semantic_analysis', "
-            "'plot_semantic_classes_umap')}\n"
+            "'plot_semantic_classes_umap')} | "
+            "{'visreps_tpu_torch.experiments.' + m for m in ("
+            "'wordnet.hierarchy', 'wordnet.wordnet', 'wordnet.make_wordnet_labels', "
+            "'wordnet.make_semantic_labels', 'pca_analysis.pca_poles_images', "
+            "'pca_analysis.pca_visualization', 'pca_analysis.visualize_class_distribution', "
+            "'neurips_2025.fig1.imagenet_pca_schematic')} | "
+            "{'visreps_tpu_torch.plotters.' + m for m in ("
+            "'plotter_utils', 'plot_helpers', 'plot_architectures', 'nsd.plot_coarseness', "
+            "'nsd_synthetic.plot_coarseness', 'things.plot_coarseness', "
+            "'tvsd.plot_coarseness')}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu', 'pandas', "

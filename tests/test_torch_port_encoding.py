@@ -66,6 +66,16 @@ ALPHAS = jridge.default_alphas()
 DETERMINED = ALPHAS[ALPHAS >= 1]  # where the per-fold-eigh route is not roundoff-decided
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _determined_alphas(mp) -> None:
     """Both packages' default alphas → DETERMINED (the eigh route's tests)."""
     for mod in (jridge, tridge, jenc, tenc):

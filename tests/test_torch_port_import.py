@@ -76,6 +76,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _zeros_template(module, size):
     """The JAX module's variables as zero numpy arrays (the JAX importer
     overlays onto a template; zeros mark what it did not import)."""

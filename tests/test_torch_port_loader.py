@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import visreps_tpu.native as jnative
@@ -28,6 +29,16 @@ from visreps_tpu_torch.data.transforms import get_transform
 # (height, width): downscales of either orientation, an identity resize
 # (shorter side 256) and an upscale below the crop.
 SIZES = [(300, 400), (256, 320), (500, 333), (256, 256), (120, 90), (231, 260)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture

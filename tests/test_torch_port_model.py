@@ -23,6 +23,16 @@ from visreps_tpu_torch.models.zoo import TORCHVISION_RETURN_NODES
 POINTS = [p for spec in ALEXNET_TAPS.values() for p in spec]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_state():
     return jax_init_model("AlexNet", 1000, seed=0, cache=False)

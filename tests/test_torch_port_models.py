@@ -59,6 +59,16 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fan_in(path, shape) -> int:
     if len(shape) == 3:  # attention: query/key/value (in, heads, hd), out (heads, hd, in)
         return int(np.prod(shape[:2])) if path[-2] == "out" else shape[0]

@@ -25,6 +25,16 @@ from visreps_tpu_torch.ops import srp as tsrp
 from visreps_tpu_torch.ops import stats as tstats
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows(kind: str) -> np.ndarray:
     rng = np.random.RandomState(1)
     if kind == "random":

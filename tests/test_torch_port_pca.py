@@ -24,6 +24,16 @@ from visreps_tpu_torch.analysis import reconstruct_from_pcs as trecon_mod
 from visreps_tpu_torch.ops import pca as tpca
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows(seed, n, d, offset=1.0):
     """(n, d) f32 rows with a decaying spectrum (gaps ≥ 5 %) and a mean."""
     rng = np.random.RandomState(seed)

@@ -21,6 +21,16 @@ PHASES = {"model_load": (0.6316, 0), "extraction": (0.5626, 3000),
           "a phase with a long name, cut": (12.5, 7), "empty": (0.0, 5)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_phase_timer_summary_matches_jax():
     t, j = PhaseTimer(), JaxPhaseTimer()
     t.phases, j.phases = dict(PHASES), dict(PHASES)

@@ -72,6 +72,16 @@ BASELINE = {("early visual stream", 0): ["conv5_post", "conv2_post"],
 THINGS_LAYER = "conv5_pre"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _block_brick(path):
     """4 × 4 colour blocks in place of pixel noise, so deep-layer RDMs are
     spread (tests/test_torch_port_e2e.py)."""

@@ -43,6 +43,16 @@ assert 2 * 2 * N_SELECT * ESTIMATES["mid"] < 9e9 <= 2 * N_STIMULI * ESTIMATES["m
 assert 9e9 <= 2 * 2 * N_SELECT * ESTIMATES["high"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _Extracted(Exception):
     """Raised by the stub extractor once it has recorded its call."""
 

@@ -37,6 +37,16 @@ from visreps_tpu_torch.ops import stats as tstats
 N_BOOT = 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tied(rng, n, levels):
     """Values drawn from ``levels`` distinct numbers: heavy ties."""
     return rng.randint(0, levels, n).astype(np.float32) / 7.0

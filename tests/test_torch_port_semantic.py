@@ -411,8 +411,11 @@ class TestPcSemantic:
 
 class TestUmapGrid:
     def test_constants_and_helpers(self):
-        assert tumap.SUPER_CATEGORIES == SUPER_CATEGORIES
-        assert tumap.CATEGORY_NAMES == jumap.CATEGORY_NAMES
+        from visreps_tpu_torch.experiments.wordnet import make_semantic_labels as tsem
+
+        assert tumap.SUPER_CATEGORIES is tsem.SUPER_CATEGORIES  # one table, in wordnet/
+        assert list(tumap.SUPER_CATEGORIES.items()) == list(SUPER_CATEGORIES.items())
+        assert tumap.CATEGORY_NAMES == jumap.CATEGORY_NAMES == list(SUPER_CATEGORIES)
         for name in ("ZOOM_PERCENTILE", "POINT_SIZE", "POINT_ALPHA", "DEFAULT_NAMES"):
             assert getattr(tumap, name) == getattr(jumap, name)
         for n in (3, 8, 15, 25):

@@ -68,6 +68,16 @@ OVERRIDES = ["neural_dataset=things-behavior", "load_model_from=torchvision",
              "batchsize=16", "num_workers=2", "use_mesh=false"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, ref, rtol):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape

@@ -74,6 +74,16 @@ NSD_LAYERS = {("early visual stream", 0): "conv5_post", ("early visual stream", 
 CLI = ["--mode", "eval", "--device", "cpu", "--config", str(BASE), "--override"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _db_rows(path, dataset):
     with sqlite3.connect(str(path)) as conn:
         return conn.execute("SELECT run_id, region, subject_idx, analysis, compare_method, layer, "

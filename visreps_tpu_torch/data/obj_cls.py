@@ -65,6 +65,34 @@ class ImageNetDataset(LabeledDataset):
             samples = [samples[i] for i in sorted(_randperm(len(samples), 42)[:n_keep])]
         super().__init__(samples, transform)
 
+    def get_wnid_from_label(self, label_idx: int) -> str:
+        """The wnid whose ``folder_labels.json`` entry is ``label_idx``."""
+        for wnid, idx in self.folder_labels.items():
+            if int(idx) == label_idx:
+                return wnid
+        raise ValueError(f"Label index {label_idx} not found.")
+
+    def get_wordnet_synset(self, label_idx: int):
+        """The nltk Synset of a class index; None (with a warning) where
+        nltk is not installed or has no synset for the wnid."""
+        try:
+            import nltk
+            from nltk.corpus import wordnet as wn
+        except ImportError:
+            rprint("nltk not installed; get_wordnet_synset unavailable", style="warning")
+            return None
+        try:
+            wn.ensure_loaded()
+        except LookupError:
+            nltk.download("wordnet")
+            nltk.download("omw-1.4")
+        wnid = self.get_wnid_from_label(label_idx)
+        try:
+            return wn.synset_from_pos_and_offset("n", int(wnid[1:]))
+        except Exception as e:
+            rprint(f"Error retrieving synset for {wnid}: {e}", style="warning")
+            return None
+
 
 class TinyImageNetDataset(LabeledDataset):
     """ImageFolder-style Tiny-ImageNet (one subdirectory per class)."""

@@ -28,46 +28,10 @@ from visreps_tpu_torch.experiments.representation_analysis.utils import (
     embedding_backend,
     load_feature_npz,
 )
+from visreps_tpu_torch.experiments.wordnet.make_semantic_labels import SUPER_CATEGORIES
 
 PROG = "semantic_analysis.plot_semantic_classes_umap"
 
-# The 8 super-categories of ``experiments/wordnet/make_semantic_labels.py``
-# (protocol data: Level-6 synsets per group), kept here until the port's
-# wordnet/ counterpart holds them.
-SUPER_CATEGORIES = {
-    "Animals": ["animal.n.01"],
-    "Natural World": [
-        "plant.n.02", "plant_organ.n.01", "fungus.n.01",
-        "alp.n.01", "cliff.n.01", "reef.n.01", "dune.n.01",
-        "geyser.n.01", "lakeside.n.01", "lunar_crater.n.01",
-        "promontory.n.01", "bar.n.08", "seashore.n.01",
-        "valley.n.01", "volcano.n.02",
-    ],
-    "Food & Produce": ["vegetable.n.01", "edible_fruit.n.01", "starches.n.01"],
-    "Structures & Architecture": [
-        "building.n.01", "establishment.n.04", "obstruction.n.01",
-        "protective_covering.n.01", "top.n.09", "memorial.n.03",
-        "tower.n.01", "supporting_structure.n.01", "housing.n.01",
-        "column.n.06", "bridge.n.01", "defensive_structure.n.01",
-        "coil.n.01", "colonnade.n.01", "landing.n.02", "fountain.n.01",
-        "house_of_cards.n.02", "building_complex.n.01", "stadium.n.01",
-        "shelter.n.01", "pool.n.01", "workplace.n.01", "arch.n.04",
-    ],
-    "Domestic & Apparel": [
-        "clothing.n.01", "footwear.n.02", "cloth_covering.n.01", "towel.n.01",
-        "bib.n.01", "dishrag.n.01", "handkerchief.n.01", "mask.n.01",
-        "furnishing.n.02", "floor_cover.n.01", "toiletry.n.01", "powder.n.03",
-    ],
-    "Vehicles & Transport": ["conveyance.n.03"],
-    "Tools & Electronics": [
-        "device.n.01", "equipment.n.01", "implement.n.01",
-        "system.n.01", "memory.n.04", "medium.n.01",
-    ],
-    "General Objects": [
-        "container.n.01", "consumer_goods.n.01", "product.n.02",
-        "brick.n.01", "coating.n.01", "screen.n.04",
-    ],
-}
 CATEGORY_NAMES = list(SUPER_CATEGORIES.keys())
 ZOOM_PERCENTILE = 2
 POINT_SIZE = 2
