@@ -138,6 +138,19 @@ non-zero without the final line:
      layers (the chain users run, NSD first), the other 44 are seeded
      with conv5_post. Checks 48 results and rows, the 4 inherited layers,
      and U + 48 launches.
+ 11a. scripts — e2e's NSD pickle and the TVSD
+     fixture's split into per-(region, subject) npz files, rebuilt by the
+     port's ``preprocess_nsd from-npz`` and ``preprocess_tvsd`` and each
+     held equal to its fixture's pickle; then e2e's eval on the rebuilt
+     NSD pickle (rows equal to e2e's bit for bit, one launch per RDM).
+ 11b. parallel — ``parallel/`` on NCCL at world size 1 (a FileStore in the
+     temporary directory): the ring ``rdm_sharded`` at (8,192, 4,096) f32
+     against the kernel (``tolerance(4096)``; both timed by CUDA events),
+     the sharded bootstrap route equal to the unsharded one, one
+     data-parallel CustomCNN step against the plain step, and e2e's eval
+     with a one-rank mesh and ``rdm_shard_threshold`` 512 (its phase-2
+     RDMs on the ring: S·(T + R) + P launches, e2e's layers, scores within
+     1e-4 of e2e's).
  12. ref_ckpt — a CustomCNN checkpoint in the reference's own format (a
      torch zip file holding the whole pickled module, 64 classes, epoch
      20) through ``train.checkpoint.load_checkpoint`` on the card and on
@@ -344,9 +357,11 @@ non-zero without the final line:
      nearest_neighbors (top-k equal to the CPU's up to swaps of cosines
      within 1e-6),
      two_pcs_compare (fc2's PCs within 1e-4 up to sign) and run_all on
-     those taps; task_brain_alignment on e2e's first subject (encoding r
-     within 1e-4 of the CPU's, alignment 1e-3; the median alpha reported:
-     roundoff picks alphas on flat CV curves); rsm_comparison of untrained
+     those taps; task_brain_alignment on e2e's first subject (the CLI's
+     encoding r within 1e-4 of the brain ridge called on the card, its
+     alignment within 1e-3 of the CPU's Fisher weights and alignment from
+     that ridge's weights; the median alpha reported: roundoff picks
+     alphas on flat CV curves); rsm_comparison of untrained
      AlexNet and ResNet18, one RDM launch per tap (24 at (1,600, d)).
  15g. semantic — semantic_alignment's eval of untrained AlexNet on e2e's
      first subject against a seeded stand-in caption-embedding npz (d_emb
@@ -390,7 +405,7 @@ non-zero without the final line:
      equal to a plain sqlite3 + numpy recomputation within 1e-12 relative
      (keys, labels, x positions and NaN places exact); ``plotter_utils``'
      query and summary of the WordNet checkpoint's rows the same way.
- 17. kernels — the per-kernel summary line (launches: the seventeen RSA
+ 17. kernels — the per-kernel summary line (launches: the nineteen RSA
      evals run in this process, cross_model, curriculum_nsd_rsa, the
      reconstruction sweeps, binary-PC RSA's neural RDMs, rsm_comparison
      and semantic_alignment; the procs workers' launches are theirs; the
@@ -684,6 +699,16 @@ PCA_POLES = {"n_rows": 110_000, "d": 4096, "seed": 16, "n_poles": 100, "n_pcs": 
 # the card's machine), every series held to a plain sqlite3 + numpy
 # recomputation within rtol
 PLOTTERS = {"seed": 0, "subjects": {"nsd": 2, "nsd_synthetic": 2, "tvsd": 2}, "rtol": 1e-12}
+# parallel/ at world size 1: the ring against the kernel at (n, d) f32; the
+# sharded bootstrap at e2e's shapes; one DP train step of CustomCNN at batch
+# dp_batch against the plain step;
+# e2e's eval with phase 2's RDMs on the ring (threshold below its 1,000 test
+# stimuli), scores within score_tol of e2e's (see phase_parallel). dp_tols are
+# tests/test_sharding.py's for the JAX package's sharded step
+PARALLEL = {"n": 8192, "d": 4096, "seed": 16, "boot_n": 1000, "n_boot": 1000, "dp_batch": 16,
+            "dp_tols": {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-3, "param_atol": 3e-3,
+                        "stats_atol": 1e-5},
+            "threshold": 512, "score_tol": 1e-4}
 
 
 START = time.perf_counter()
@@ -2297,6 +2322,10 @@ def phase_runners(tmp: Path, data: dict) -> dict:
 
 
 E2E_SOURCE = ["load_model_from=torchvision", "model_name=AlexNet", "pretrained_dataset=none"]
+# e2e's results.db rows among the other evals' in the same database
+E2E_ROWS = ("cfg_id = 'untrained' AND compare_method = 'spearman' AND "
+            "reconstruct_from_pcs = 0 AND neural_dataset = 'nsd' AND subject_idx "
+            "IN ('0', '1') AND region IN ('early visual stream', 'ventral visual stream')")
 
 
 def untrained(cfg_id, epoch) -> bool:
@@ -2318,10 +2347,10 @@ class Scoring:
         self.saved = {k: getattr(evals, k) for k in (
             "_score_pairs", "compute_rdm_correlation_batched", "bootstrap_rdm_correlation")}
 
-        def keep(cfg, model_rdms, neural_mats, pair_layer, n_test):
+        def keep(cfg, model_rdms, neural_mats, pair_layer, *rest):
             self.args.update(model_rdms=dict(model_rdms), neural_mats=dict(neural_mats),
                              pair_layer=dict(pair_layer))
-            return self.saved["_score_pairs"](cfg, model_rdms, neural_mats, pair_layer, n_test)
+            return self.saved["_score_pairs"](cfg, model_rdms, neural_mats, pair_layer, *rest)
 
         def timed(key, fn):
             def call(*args, **kwargs):
@@ -2461,16 +2490,13 @@ def phase_dense_boot(meta: dict, e2e_run: dict) -> dict:
     )
     from visreps_tpu_torch.ops.rdm import triangle_tie_count
 
-    where = ("cfg_id = 'untrained' AND compare_method = 'spearman' AND "
-             "reconstruct_from_pcs = 0 AND neural_dataset = 'nsd' AND subject_idx "
-             "IN ('0', '1') AND region IN ('early visual stream', 'ventral visual stream')")
     with Scoring() as scoring:
-        run = run_eval("dense_boot", meta, E2E_SOURCE, where, untrained,
+        run = run_eval("dense_boot", meta, E2E_SOURCE, E2E_ROWS, untrained,
                        options=("bootstrap_exact_ties=false",))
     problems = same_selection(run, e2e_run, "dense_boot")
     # bootstrap_exact_ties is no identity field: these rows replaced e2e's
     # under the same run ids, so the stored distributions must be this run's.
-    stored = sorted(db_bootstraps(where))
+    stored = sorted(db_bootstraps(E2E_ROWS))
     if stored != sorted(r["bootstrap_scores"] for r in run["results"]):
         problems.append("results.db bootstrap distributions are not this run's")
     point_diff = max(abs(a["score"] - b["score"])
@@ -2862,6 +2888,247 @@ def phase_analyses(tmp: Path, data: dict) -> None:
         failures.append("cross_decomposition_card_vs_cpu")
     if failures:
         raise RuntimeError(f"analyses: {failures} out of tolerance: {errs}")
+
+
+def same_pickle(a, b, path: str = "") -> list:
+    """Where two preprocessed pickles differ: keys, ids, arrays (dtype,
+    shape, values) and other leaves; [] when they are equal. A set of ids
+    and a list of the same ids are equal (the fixture writes NSD's
+    shared_ids as a list, ``preprocess_nsd`` as the set the JAX script
+    writes)."""
+    import numpy as np
+
+    if isinstance(a, (set, frozenset)) or isinstance(b, (set, frozenset)):
+        return [] if set(a) == set(b) else [f"{path}: ids differ"]
+    if isinstance(a, dict) and isinstance(b, dict):  # key order aside, as dicts compare
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(a)} != {sorted(b)}"]
+        return [d for k in a for d in same_pickle(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        ok = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        return [] if ok else [f"{path}: arrays differ"]
+    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def phase_scripts(meta: dict, tmp: Path, e2e_run: dict) -> dict:
+    """The data-preparation scripts on this run's fixtures: e2e's NSD
+    pickle and the TVSD fixture's split into per-(region, subject) npz
+    files, rebuilt by ``preprocess_nsd from-npz`` and ``preprocess_tvsd``
+    (test responses as one repetition of each stimulus, so the average is
+    the fixture's value) and each held equal to its fixture's pickle; then
+    e2e's NSD RSA eval on the rebuilt pickle, whose rows must equal e2e's
+    bit for bit, with e2e's checks (one launch per RDM)."""
+    import pickle
+
+    import numpy as np
+
+    from visreps_tpu_torch.benchmarks import fixture
+    from visreps_tpu_torch.scripts.preprocess_data import preprocess_nsd, preprocess_tvsd
+
+    t0 = time.perf_counter()
+    work = tmp / "scripts"
+    nsd_npz, tvsd_npz, nsd_out = work / "nsd_npz", work / "tvsd_npz", work / "nsd"
+    for d in (nsd_npz, tvsd_npz, nsd_out):
+        d.mkdir(parents=True)
+    with open(meta["pickle"], "rb") as f:
+        nsd = pickle.load(f)
+    for region, by_subj in nsd["data"].items():
+        for subj, r in by_subj.items():
+            np.savez(nsd_npz / f"{region}_subj{subj}.npz", stimulus=np.asarray(r["stimulus"]),
+                     values=r["values"])
+    np.save(work / "shared_ids.npy", np.asarray(nsd["shared_ids"], np.int64))
+    preprocess_nsd.main(["from-npz", "--npz-dir", str(nsd_npz), "--shared-ids",
+                         str(work / "shared_ids.npy"), "--out", str(nsd_out / "nsd_data.pkl")])
+    with open(nsd_out / "nsd_data.pkl", "rb") as f:
+        nsd_diff = same_pickle(pickle.load(f), nsd)
+
+    t1 = time.perf_counter()
+    tvsd_meta = fixture.ensure_tvsd_fixture(tmp / "fixture", **TVSD)  # tvsd's, when it ran
+    tvsd_fixture_s = time.perf_counter() - t1
+    tvsd_pkl = Path(tvsd_meta["root"]) / "datasets" / "neural" / "tvsd" / "fmri_responses.pkl"
+    with open(tvsd_pkl, "rb") as f:
+        tvsd = pickle.load(f)
+    for region, by_subj in tvsd.items():
+        for subj, r in by_subj.items():
+            np.savez(tvsd_npz / f"{region}_subj{subj}.npz",
+                     train_stimulus=np.asarray(r["train"]["stimulus"]),
+                     train_values=r["train"]["values"],
+                     test_stimulus=np.asarray(r["test"]["stimulus"]),
+                     test_values=r["test"]["values"][:, None, :])
+    preprocess_tvsd.main(["--npz-dir", str(tvsd_npz), "--out", str(work / "tvsd" / "resp.pkl")])
+    with open(work / "tvsd" / "resp.pkl", "rb") as f:
+        tvsd_diff = same_pickle(pickle.load(f), tvsd)
+    scripts_s = time.perf_counter() - t0 - tvsd_fixture_s
+    if nsd_diff or tvsd_diff:
+        raise RuntimeError(f"rebuilt pickles differ: NSD {nsd_diff[:5]}, TVSD {tvsd_diff[:5]}")
+
+    with environ(NSD_DATA_DIR=nsd_out):
+        run = run_eval("scripts_e2e", meta, E2E_SOURCE, E2E_ROWS,
+                       lambda cfg_id, epoch: epoch == -1,
+                       extra={"scripts_s": scripts_s, "tvsd_fixture_s": tvsd_fixture_s})
+    want = [(r["layer"], r["score"], r["ci_low"], r["ci_high"]) for r in e2e_run["results"]]
+    got = [(r["layer"], r["score"], r["ci_low"], r["ci_high"]) for r in run["results"]]
+    if got != want:
+        raise RuntimeError(f"the eval on the rebuilt pickle {got} != e2e's {want}")
+    return run
+
+
+def phase_parallel(meta: dict, tmp: Path, e2e_run: dict) -> dict:
+    """``parallel/`` on NCCL at world size 1 (one card: NCCL refuses two
+    ranks on one device), the group made through a FileStore in the
+    temporary directory:
+
+      * ``rdm_sharded`` at PARALLEL's (n, d) f32 against ``compute_rdm``
+        (the kernel, one launch) at ``tolerance(d)``, each timed with
+        CUDA events;
+      * the sharded bootstrap route (``shard_iterations``: pad, this
+        rank's slice, all-gather) against the unsharded call at e2e's
+        shapes, bit for bit;
+      * one data-parallel train step (``sync_batch_norm`` over the group,
+        the gradients all-reduced) of CustomCNN against the plain step
+        from the same weights (SGD, dropout on: loss, gradient norm and
+        ``tests/test_sharding.py``'s tolerances for the JAX package's
+        sharded step: loss 1e-5 and gradient norm 1e-3 relative,
+        parameters 3e-3 and BatchNorm statistics 1e-5 absolute. cuDNN's
+        batch norm and the global-batch path sum the statistics in other
+        orders, and a pre-activation within that roundoff of 0 flips its
+        ReLU, which moves single gradient entries by up to ≈ 1e-3 of the
+        tensor's largest, as in ``tests/test_torch_port_train_families.py``'s
+        ResNet50 case);
+      * e2e's eval through ``evals.eval`` with a one-rank mesh and
+        ``rdm_shard_threshold`` below its 1,000 test stimuli, so its phase-2
+        RDMs take the ring and its batches ``extract_sharded_batch``: the
+        same layers as e2e, S·(T + R) + P kernel launches (the ring launches
+        none), scores and CIs within PARALLEL's score_tol of e2e's: the
+        ring's f32 product and the kernel's 3xTF32 RDMs part by ≈ 1e-6,
+        about the gap between neighbouring sorted entries of a crowded
+        tap's 499,500, so near-tied entries exchange ranks; each exchange
+        moves a Spearman score by at most 12 / (M (M + 1)) = 4.8e-11."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from visreps_tpu_torch.core.config import Config, load_config
+    from visreps_tpu_torch.evals import eval as run_evals
+    from visreps_tpu_torch.models.custom_cnn import CustomCNN
+    from visreps_tpu_torch.models.layers import sync_batch_norm
+    from visreps_tpu_torch.ops import rdm_kernel
+    from visreps_tpu_torch.ops.bootstrap import bootstrap_indices, grouped_core
+    from visreps_tpu_torch.ops.rdm import compute_rdm, triu_indices
+    from visreps_tpu_torch.parallel import make_mesh, rdm_sharded
+    from visreps_tpu_torch.parallel.shard import shard_iterations
+    from visreps_tpu_torch.run import validate_config
+    from visreps_tpu_torch.train.optim import Optimizer
+    from visreps_tpu_torch.train.trainer import train_step
+
+    spec = PARALLEL
+    t_phase = time.perf_counter()
+    store = dist.FileStore(str(tmp / "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    rec = {"phase": "parallel", "backend": dist.get_backend(), "world_size": 1}
+    try:
+        mesh = make_mesh(data=1)
+        group = mesh.get_group("data")
+
+        n, d = spec["n"], spec["d"]
+        gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+        x = torch.randn((n, 64), device="cuda", generator=gen) @ torch.randn(
+            (64, d), device="cuda", generator=gen) + torch.randn((n, d), device="cuda",
+                                                                 generator=gen)
+        rdm_kernel.LAUNCHES = 0
+        kernel = compute_rdm(x)
+        if rdm_kernel.LAUNCHES != 1:
+            raise RuntimeError(f"compute_rdm made {rdm_kernel.LAUNCHES} launches, expected 1")
+        ring = rdm_sharded(x, mesh)
+        err = float((ring - kernel).abs().max())
+        iters = timing_iters(n, d)
+        rec["rdm"] = {"n": n, "d": d, "max_abs_err": err, "tol": tolerance(d, "float32"),
+                      "ring_ms": time_ms(lambda: rdm_sharded(x, mesh), iters)[0],
+                      "kernel_ms": time_ms(lambda: compute_rdm(x), iters)[0]}
+        del x, ring, kernel
+
+        m, v = spec["boot_n"], 512
+        iu, ju = triu_indices(m, "cuda")
+        model_tris = compute_rdm(torch.randn((m, 4096), device="cuda", generator=gen))[iu, ju][None]
+        neural_tris = compute_rdm(torch.randn((m, v), device="cuda", generator=gen))[iu, ju][None]
+        idx = torch.as_tensor(bootstrap_indices(m, spec["n_boot"], seed=42), device="cuda")
+        plain, _ = grouped_core(model_tris, neural_tris, [0], idx, m)
+        sharded = shard_iterations(lambda ix: grouped_core(model_tris, neural_tris, [0], ix, m)[0],
+                                   idx, mesh)
+        rec["bootstrap_equal"] = bool(torch.equal(plain, sharded))
+
+        states, steps, param_names = [], [], set()
+        bx = torch.randn((spec["dp_batch"], 3, 224, 224), device="cuda", generator=gen)
+        by = torch.randint(0, 1000, (spec["dp_batch"],), device="cuda", generator=gen)
+        start = {k: v.clone() for k, v in CustomCNN(num_classes=1000).state_dict().items()}
+        for dp in (False, True):
+            model = CustomCNN(num_classes=1000)
+            model.load_state_dict(start)
+            model.cuda()
+            if dp:
+                sync_batch_norm(model, group)
+            opt = Optimizer(model, Config({"optimizer": "sgd", "learning_rate": 0.1,
+                                           "num_epochs": 2, "warmup_epochs": 0,
+                                           "grad_clip": 0}), 1, model.trainable_mask())
+            rows = (0, spec["dp_batch"]) if dp else None
+            loss, gn = train_step(model, opt, bx, by, torch.Generator(device="cuda").manual_seed(0),
+                                  0, group=group if dp else None, rows=rows)
+            steps.append((float(loss), float(gn)))
+            states.append(model.state_dict())
+            param_names = {k for k, _ in model.named_parameters()}
+        gaps = {k: float((states[1][k].float() - v.float()).abs().max())
+                for k, v in states[0].items() if v.is_floating_point()}
+        rec["dp_step"] = {"loss": steps,
+                          "param_err": max(v for k, v in gaps.items() if k in param_names),
+                          "stats_err": max(v for k, v in gaps.items() if k not in param_names),
+                          "tols": spec["dp_tols"]}
+        del states
+
+        cfg = validate_config(load_config(str(ROOT / "configs/eval/base.json"), [
+            *rsa_overrides(E2E_SOURCE, list(range(E2E["n_subjects"])),
+                           NSD_REGIONS[:E2E["n_regions"]]),
+            f"rdm_shard_threshold={spec['threshold']}", "log_expdata=false", "mode=eval"]))
+        with rdm_probe() as probe:
+            t0 = time.perf_counter()
+            results = run_evals(cfg, device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    pairs = E2E["n_subjects"] * E2E["n_regions"]
+    check_rsa_results(results, pairs, 14)
+    run = {"results": results, "launches": probe["launches"], "shapes": probe["shapes"]}
+    check_launches(run, E2E["n_subjects"] * (14 + E2E["n_regions"]) + pairs,
+                   "S·(T + R) + P: phase 2's RDMs take the ring")
+    score_gap = max(abs(a[k] - b[k]) for a, b in zip(results, e2e_run["results"])
+                    for k in ("score", "ci_low", "ci_high"))
+    rec.update({"eval_s": wall, "eval_launches": probe["launches"], "score_gap": score_gap,
+                "score_tol": spec["score_tol"],
+                "layers": [r["layer"] for r in results], "seconds": time.perf_counter() - t_phase})
+    emit(rec)
+    problems = []
+    if not rec["rdm"]["max_abs_err"] <= rec["rdm"]["tol"]:
+        problems.append("rdm_sharded vs the kernel")
+    if not rec["bootstrap_equal"]:
+        problems.append("sharded bootstrap")
+    (l0, g0), (l1, g1) = steps
+    tols = spec["dp_tols"]
+    if not (abs(l1 - l0) <= tols["loss_rtol"] * abs(l0)
+            and abs(g1 - g0) <= tols["grad_norm_rtol"] * g0
+            and rec["dp_step"]["param_err"] <= tols["param_atol"]
+            and rec["dp_step"]["stats_err"] <= tols["stats_atol"]):
+        problems.append("data-parallel step")
+    if rec["layers"] != [r["layer"] for r in e2e_run["results"]]:
+        problems.append("mesh eval layers")
+    if not score_gap <= spec["score_tol"]:
+        problems.append("mesh eval scores")
+    if problems:
+        raise RuntimeError(f"parallel: {problems}: {rec}")
+    return run
 
 
 def phase_path(shapes: Counter, records: list) -> float:
@@ -4269,7 +4536,8 @@ def phase_representation(tmp: Path, data: dict, checkpoint_dir: str, meta: dict)
     two_pcs_compare and run_all read, each held to the CPU (accuracies
     exactly, neighbours up to swaps of near-tied cosines; fc2's PCs up to
     sign; run_all's rows to the CPU metrics). task_brain_alignment on the
-    32-way checkpoint's fc2 of e2e's first subject against the CPU.
+    32-way checkpoint's fc2 of e2e's first subject against the CPU's
+    Fisher weights and alignment of the card's brain ridge.
     rsm_comparison of the untrained
     AlexNet and ResNet18: one RDM launch per tap, a symmetric similarity
     matrix with a unit diagonal. Returns the RDM launches and shapes."""
@@ -4414,11 +4682,14 @@ def phase_representation(tmp: Path, data: dict, checkpoint_dir: str, meta: dict)
         "--brain-features", str(out / "brain_features.npy"),
         "--brain-responses", str(out / "brain_responses.npy"),
         "--layer", "fc2", "--out-dir", str(out / "task_brain"), "--device", "cuda"])
+    # The brain ridge runs on the card here (the CPU's took 16-30 s; cut in
+    # PR 16: ridge card = CPU stays held by encoding_check); the Fisher
+    # weights and the alignment are recomputed on the CPU from its weights.
+    brain_w, mean_r, alpha_med = task_brain_alignment.brain_predictive_weights(
+        brain, neural, device="cuda")
     t0 = time.perf_counter()
     task_w = task_brain_alignment.fisher_discriminant_per_dim(
         hosts[0][layer], labels, int(labels.max()) + 1, device="cpu").numpy()
-    brain_w, mean_r, alpha_med = task_brain_alignment.brain_predictive_weights(
-        brain, neural, device="cpu")
     cpu_row = {"encoding_mean_r": mean_r, "alpha_median": alpha_med,
                **task_brain_alignment.compute_alignment(task_w, brain_w, device="cpu")}
     seconds["task_brain_alignment_cpu_s"] = time.perf_counter() - t0
@@ -5405,6 +5676,8 @@ def main() -> int:
         rsa_runs.append(phase_things(tmp))
         rsa_runs.append(phase_tvsd(tmp))
         rsa_runs.append(phase_nsd_synthetic(tmp, rsa_runs[0]["results"]))
+        rsa_runs.append(phase_scripts(meta, tmp, rsa_runs[0]))
+        rsa_runs.append(phase_parallel(meta, tmp, rsa_runs[0]))
         rsa_runs.append(phase_ref_ckpt(meta, tmp))
         # VGG16's eval runs at 37,000 NSD stimuli in nsd73k_vgg16 below
         rsa_runs.extend(phase_pretrained(meta, tmp, name) for name in ("ResNet50", "ViTBase"))

@@ -20,6 +20,16 @@ from visreps_tpu_torch.ops import bootstrap as tboot
 from visreps_tpu_torch.ops import pca as tpca
 from visreps_tpu_torch.ops.rdm import compute_rdm
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.cuda
 
 

@@ -301,11 +301,18 @@ class TestStandalone:
             "{'visreps_tpu_torch.plotters.' + m for m in ("
             "'plotter_utils', 'plot_helpers', 'plot_architectures', 'nsd.plot_coarseness', "
             "'nsd_synthetic.plot_coarseness', 'things.plot_coarseness', "
-            "'tvsd.plot_coarseness')}\n"
+            "'tvsd.plot_coarseness')} | "
+            "{'visreps_tpu_torch.scripts.' + m for m in ("
+            "'preprocess_data.preprocess_nsd', 'preprocess_data.preprocess_nsd_synthetic', "
+            "'preprocess_data.preprocess_things', 'preprocess_data.preprocess_tvsd', "
+            "'preprocess_data.process_cusack25', 'combine_fmri_responses', 'copy_checkpoints', "
+            "'create_imagenet_labels', 'create_imagenet_mini', 'extract_xarray_coords')} | "
+            "{'visreps_tpu_torch.parallel.' + m for m in ('mesh', 'feed', 'auto', 'shard')}\n"
             "assert new <= set(sys.modules), new - set(sys.modules)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'visreps_tpu', 'pandas', "
-            "'sklearn', 'matplotlib', 'seaborn', 'experiments', 'plotters')]\n"
+            "'sklearn', 'matplotlib', 'seaborn', 'experiments', 'plotters', 'scripts', "
+            "'xarray')]\n"
             "assert not bad, bad\n")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=300)

@@ -4,6 +4,7 @@ port's ``core/db.save_results``."""
 import math
 
 import pytest
+import torch
 
 from visreps_tpu import explore_results as jexplore
 
@@ -11,6 +12,16 @@ import visreps_tpu_torch.core.db as tdb
 from visreps_tpu_torch import explore_results as texplore
 from visreps_tpu_torch.config import ConfigDict
 from visreps_tpu_torch.core.config import Config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _result(layer, score, boot=True, selection=True):

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from experiments.binary_pc_rsa import visualize as jviz
 from experiments.coarse_grain_benefits import plot_curriculum_rsa as jcur
@@ -48,6 +49,16 @@ from visreps_tpu_torch.experiments.neurips_2025.fig2 import reconstructed_rsa_ns
 from visreps_tpu_torch.experiments.neurips_2025.fig3 import full_vs_pcs_things as tfig3f
 from visreps_tpu_torch.experiments.neurips_2025.fig3 import reconstructed_rsa_things as tfig3r
 from visreps_tpu_torch.experiments.reconstruction_analysis import plot as tplot
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 REGIONS = ["early visual stream", "ventral visual stream"]

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import matplotlib
 
@@ -49,6 +50,16 @@ from visreps_tpu_torch.plotters.nsd import plot_coarseness as tnsd  # noqa: E402
 from visreps_tpu_torch.plotters.nsd_synthetic import plot_coarseness as tsyn  # noqa: E402
 from visreps_tpu_torch.plotters.things import plot_coarseness as tthings  # noqa: E402
 from visreps_tpu_torch.plotters.tvsd import plot_coarseness as ttvsd  # noqa: E402
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL = 1e-12

@@ -19,6 +19,16 @@ from visreps_tpu_torch import run as trun
 from visreps_tpu_torch.benchmarks import fixture as tfixture
 from visreps_tpu_torch.core.config import load_config
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "configs/eval/base.json")
 OVERRIDES = [
@@ -115,3 +125,29 @@ def test_failing_worker_fails_the_parent(fixture_env, monkeypatch):
         trun.main(["--mode", "eval", "--procs", "2", "--device", "cpu", "--config", CONFIG,
                    "--override", *OVERRIDES, "model_name=NotAModel"])
     assert exc.value.code == 1
+
+
+def test_parent_makes_the_shared_db_before_the_workers(fixture_env, monkeypatch, tmp_path):
+    """The workers share one WAL results.db, which the parent makes before
+    it starts them: two first connections switching a new file to WAL at
+    once can fail one with "database is locked" (seen on the card)."""
+    _, env = fixture_env
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    path = tmp_path / "fresh.db"
+    monkeypatch.setenv("VISREPS_RESULTS_DB", str(path))
+    seen = {}
+
+    def no_workers(argvs):
+        with sqlite3.connect(str(path)) as conn:
+            seen["mode"] = conn.execute("PRAGMA journal_mode").fetchone()[0]
+            seen["tables"] = {r[0] for r in conn.execute(
+                "SELECT name FROM sqlite_master WHERE type='table'")}
+        return 0
+
+    monkeypatch.setattr(trun, "_run_sharded", no_workers)
+    with pytest.raises(SystemExit) as exc:
+        trun.main(["--mode", "eval", "--procs", "2", "--device", "cpu", "--config", CONFIG,
+                   "--override", *OVERRIDES])
+    assert exc.value.code == 0
+    assert seen["mode"] == "wal" and "results" in seen["tables"]

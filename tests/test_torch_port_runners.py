@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from visreps_tpu.runners import base_runner as jbase
@@ -26,6 +27,16 @@ from visreps_tpu_torch.runners import base_runner as tbase
 from visreps_tpu_torch.runners import eval_runner as teval
 from visreps_tpu_torch.runners import scheduler as tsched
 from visreps_tpu_torch.runners import train_runner as ttrain
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 GRIDS = sorted((REPO / "configs" / "grids").glob("*.json"))

@@ -34,6 +34,16 @@ from test_torch_port_things import BASE, OVERRIDES, TINY, _db_rows as things_row
 from test_torch_port_tvsd_synth import CLI, NSD_LAYERS, REGIONS_NSD, SYN, TVSD_RSA, \
     _db_rows as pair_rows, _jax_cfg, _same_result, _same_rows, _use_db, world  # noqa: F401
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread (a parallel test run otherwise
+    oversubscribes the machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KENDALL = ["compare_method=kendall"]
 RECONSTRUCT = ["reconstruct_from_pcs=true", "pca_k=1"]
 

@@ -108,10 +108,11 @@ def prepare_concept_alignment(cfg, acts_raw, neural_data_raw, keys) -> Alignment
 
 def compute_traintest_alignment(cfg, train: AlignmentData, test: AlignmentData,
                                 verbose: bool = False, re_extract_fn=None,
-                                device=None) -> List[dict]:
+                                device=None, mesh=None) -> List[dict]:
     """Per-pair dispatch on ``cfg.analysis``: ``compute_rsa`` (with
     ``re_extract_fn`` for the selected layer's full-resolution test
-    activations) or the encoding score."""
+    activations; its bootstrap sharded over ``mesh``) or the encoding
+    score."""
     from visreps_tpu_torch.analysis.encoding import compute_encoding_score
     from visreps_tpu_torch.analysis.rsa import compute_rsa
 
@@ -125,7 +126,7 @@ def compute_traintest_alignment(cfg, train: AlignmentData, test: AlignmentData,
     if analysis == "rsa":
         return compute_rsa(cfg, train, test, n_select=cfg.get("n_select", None),
                            bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
-                           re_extract_fn=re_extract_fn, device=device)
+                           re_extract_fn=re_extract_fn, device=device, mesh=mesh)
     if analysis == "encoding_score":
         pca_k = cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None
         return compute_encoding_score(

@@ -98,7 +98,8 @@ def select_best_layer(acts: Dict[str, torch.Tensor], neural: np.ndarray | torch.
 
 def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
                 bootstrap: bool = True, n_bootstrap: int = 1000, seed: int = 42,
-                verbose: bool = False, re_extract_fn=None, device=None) -> List[Dict]:
+                verbose: bool = False, re_extract_fn=None, device=None,
+                mesh=None) -> List[Dict]:
     """Select the best layer on ``selection``, score it on
     ``evaluation`` (AlignmentData), with bootstrap CIs.
 
@@ -114,7 +115,8 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
     ``bootstrap_rdm_correlation`` (for Spearman then by dense ranks: under
     "auto" or true it runs fused, so the JAX package's tie detection on
     this route is not needed). Scoring runs on ``device`` (default: where
-    the test activations lie; arrays need ``device``).
+    the test activations lie; arrays need ``device``). Under a multi-rank
+    ``mesh`` the bootstrap iterations shard over its 'data' axis.
     Returns a one-element list: layer, compare_method, score, ci_low,
     ci_high, analysis, layer_selection_scores and, with a bootstrap,
     bootstrap_scores and bootstrap_exact_ties.
@@ -166,7 +168,7 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
     if fused:
         boot, point = single_pair_scoring(test_acts, evaluation.neural,
                                           bootstrap_indices(n_test, n_bootstrap, seed=rng),
-                                          device=device)
+                                          device=device, mesh=mesh)
         boot_exact = True
         LAST_RSA_TIMES["fused"] = 1.0
         LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
@@ -179,7 +181,7 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
         if bootstrap:
             boot = bootstrap_rdm_correlation(
                 model_rdm, neural_rdm, method=method,
-                indices=bootstrap_indices(n_test, n_bootstrap, seed=rng))
+                indices=bootstrap_indices(n_test, n_bootstrap, seed=rng), mesh=mesh)
         LAST_RSA_TIMES["bootstrap_s"] = time.perf_counter() - t
 
     msg = f"  {method.capitalize():<10}| {best_layer} = {point:.4f}"

@@ -33,8 +33,14 @@ each pair's layer from the NSD RSA row in results.db and scores its
 exact taps on the 220 synthetic stimuli.
 
 Every RDM goes through ``ops.rdm.compute_rdm`` — the Hopper kernel on
-the card. Models outside the port raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+the card — except, under a multi-rank mesh, those of at least
+``rdm_shard_threshold`` (4096) stimuli, which take the row-block ring
+``parallel.rdm_sharded`` (``_rdm``). Under a mesh (``torchrun``, one
+process per GPU; ``parallel.default_mesh``) extraction batches split over
+the 'data' axis and the bootstrap iterations too; every rank computes the
+single-process results and only rank 0 writes results.db. Models outside
+the port raise NotImplementedError naming the ROADMAP.md item that ports
+them.
 """
 from __future__ import annotations
 
@@ -85,6 +91,9 @@ from visreps_tpu_torch.ops.bootstrap import (
 )
 from visreps_tpu_torch.ops.pca import reconstruct_from_pcs
 from visreps_tpu_torch.ops.rdm import compute_rdm, compute_rdm_correlation_batched
+from visreps_tpu_torch.parallel.auto import default_mesh
+from visreps_tpu_torch.parallel.mesh import is_writer, world_size
+from visreps_tpu_torch.parallel.shard import mesh_batch_size, rdm_sharded
 
 #: Wall-clock seconds of the last eval's phases: model_load_s,
 #: data_load_s, extraction_s (of which extraction_loader_s waited on the
@@ -135,6 +144,22 @@ def _build_header(cfg) -> str:
         parts.append(f"subj {subj}")
     parts.append(f"seed {seed}")
     return " | ".join(parts)
+
+
+def _rdm(x, mesh, cfg) -> torch.Tensor:
+    """``compute_rdm``, or under a mesh the row-block ring
+    ``rdm_sharded`` when the matrix has at least ``rdm_shard_threshold``
+    rows (4096), enough to amortise the all-gather."""
+    if mesh is not None and x.shape[0] >= cfg.get("rdm_shard_threshold", 4096):
+        return rdm_sharded(x, mesh)
+    return compute_rdm(x)
+
+
+def _save(rows, cfg) -> None:
+    """Write ``rows`` to results.db under ``log_expdata``, from rank 0
+    only (every rank of a mesh holds the same rows)."""
+    if cfg.get("log_expdata") and is_writer():
+        save_results(rows, cfg)
 
 
 def _neural_tensor(responses: dict, ids) -> np.ndarray:
@@ -199,12 +224,14 @@ def store_plan(cfg, device_type: str, n_stimuli: int, out_dims_total: int,
     on the card when the whole bf16 store, 2 · n_stimuli ·
     ``out_dims_total`` bytes, reaches the budget; a true value always
     retains, a false one never; a retain set as large as the stimulus set
-    is no retention. ``acts_store``: "auto" takes the bf16 device store on
-    the card when the kept rows' store is positive and under the budget,
-    else the f32 host store.
+    is no retention. Under several ranks nothing is retained, as in the
+    JAX package under several processes (``extractor.py:456``).
+    ``acts_store``: "auto" takes the bf16 device store on the card when
+    the kept rows' store is positive and under the budget, else the f32
+    host store.
     """
     retain = None
-    if retain_union is not None:
+    if retain_union is not None and world_size() == 1:
         mode = cfg.get("acts_retain", "auto")
         if mode == "auto":
             if device_type == "cuda" and 2 * n_stimuli * out_dims_total >= STORE_BUDGET_BYTES:
@@ -221,16 +248,19 @@ def store_plan(cfg, device_type: str, n_stimuli: int, out_dims_total: int,
     return retain, store
 
 
-def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
+def eval(cfg: Config, device: str | torch.device | None = None, mesh=None) -> List[Dict]:
     """Run the eval ``cfg`` asks for (``neural_dataset`` nsd, tvsd,
     things-behavior or nsd_synthetic; ``analysis`` rsa, or
     encoding_score on nsd and tvsd); returns one result dict per
     (region, subject), one for THINGS.
 
     ``device`` defaults to CUDA (raising when there is none); pass
-    ``"cpu"`` to run on the CPU with the kernel's plain version.
+    ``"cpu"`` to run on the CPU with the kernel's plain version. ``mesh``
+    defaults to ``default_mesh(cfg)``: None in one process.
     """
     device = resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh(cfg)
     _check_slice(cfg)
     verbose = cfg.get("verbose", False)
     LAST_PHASE_TIMES.clear()
@@ -243,11 +273,11 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
         cfg.return_nodes = TORCHVISION_RETURN_NODES[cfg.get("model_name", "AlexNet")]
     dataset = cfg.get("neural_dataset", "nsd").lower()
     if dataset == "things-behavior":
-        return _eval_things(cfg, verbose, device)
+        return _eval_things(cfg, verbose, device, mesh)
     subjects = _listify(cfg.subject_idx)
     regions = _listify(cfg.region)
     if dataset == "nsd_synthetic":
-        return _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device)
+        return _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device, mesh)
 
     # ── NSD / TVSD: the unified multi-subject path ──
     seed_letter = get_seed_letter(cfg.seed) if isinstance(cfg.seed, int) else "?"
@@ -259,6 +289,7 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     timer = Timer()
     model = load_model(cfg, device=device)
     extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+    extractor.mesh = mesh
     LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
 
     load_all = load_all_nsd_data if dataset == "nsd" else load_all_tvsd_data
@@ -269,7 +300,8 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
            f"{len(all_data['shared_test_ids'])} shared test IDs", style="success")
 
     transform = get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False))
-    dl = make_stimuli_loader(stimuli, transform, cfg.batchsize, cfg.get("num_workers", 16))
+    dl = make_stimuli_loader(stimuli, transform, mesh_batch_size(cfg.batchsize, mesh),
+                             cfg.get("num_workers", 16))
     # RSA's phase 1 reads only the plan's rows, so the plan comes first and
     # extraction may keep just those; encoding needs every train row.
     plan = union = None
@@ -290,19 +322,22 @@ def eval(cfg: Config, device: str | torch.device | None = None) -> List[Dict]:
     # after phase 1 frees the store before phase 2's exact taps.
     acts_box = [acts]
     del acts
-    return _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbose, plan)
+    return _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbose, plan,
+                     mesh)
 
 
-def _eval_things(cfg, verbose, device) -> List[Dict]:
+def _eval_things(cfg, verbose, device, mesh=None) -> List[Dict]:
     """Concept-level RSA against the THINGS behavioural embeddings: one
     result (region and subject "N/A")."""
     timer = Timer()
     rprint(f"\n  {_build_header(cfg)} | {device}\n", style="info")
     model = load_model(cfg, device=device)
     extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+    extractor.mesh = mesh
     LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
 
-    neural_data, dl = get_neural_loader(cfg)
+    neural_data, dl = get_neural_loader(cfg if mesh is None else cfg.merge(
+        {"batchsize": mesh_batch_size(cfg.batchsize, mesh)}))
     rprint("  THINGS data loaded", style="success")
     LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
 
@@ -353,19 +388,18 @@ def _eval_things(cfg, verbose, device) -> List[Dict]:
         return concept_average_exact(raw, raw_ids, evaluation), evaluation.stimulus_ids
 
     scores = compute_traintest_alignment(cfg, selection, evaluation, verbose=verbose,
-                                         re_extract_fn=re_extract, device=device)
+                                         re_extract_fn=re_extract, device=device, mesh=mesh)
     _sync(device)
     LAST_PHASE_TIMES["scoring_s"] = timer.mark("scoring")
     LAST_PHASE_TIMES.update({f"scoring_{k}": v for k, v in rsa.LAST_RSA_TIMES.items()})
-    if cfg.get("log_expdata"):
-        save_results(scores, cfg)
+    _save(scores, cfg)
     return scores
 
 
-def _model_rdms(cfg, exact: dict, layers) -> dict:
+def _model_rdms(cfg, exact: dict, layers, mesh=None) -> dict:
     """One RDM per layer of the exact taps ``exact`` (popped as they are
-    used); with ``reconstruct_from_pcs`` each tap is first rebuilt from
-    its top ``pca_k`` PCs."""
+    used; ``_rdm`` routes them under a mesh); with ``reconstruct_from_pcs``
+    each tap is first rebuilt from its top ``pca_k`` PCs."""
     pca_k = cfg.get("pca_k", 1)
     rdms = {}
     for layer in layers:
@@ -373,7 +407,7 @@ def _model_rdms(cfg, exact: dict, layers) -> dict:
         if cfg.get("reconstruct_from_pcs"):
             acts = reconstruct_from_pcs({layer: acts}, pca_k)[layer]
             rprint(f"    Reconstructed {layer} from {pca_k} PCs", style="info")
-        rdms[layer] = compute_rdm(acts)
+        rdms[layer] = _rdm(acts, mesh, cfg)
     return rdms
 
 
@@ -399,7 +433,7 @@ def _exact_groups(extractor, layers, n_rows: int) -> list:
     return groups
 
 
-def _exact_rdms(cfg, extractor, loader, layers, stimulus_ids) -> dict:
+def _exact_rdms(cfg, extractor, loader, layers, stimulus_ids, mesh=None) -> dict:
     """One RDM per layer of ``layers``' exact taps over ``loader`` (rows in
     ``stimulus_ids`` order): one loader pass per ``_exact_groups`` group,
     each group's taps freed as its RDMs are built."""
@@ -409,11 +443,12 @@ def _exact_rdms(cfg, extractor, loader, layers, stimulus_ids) -> dict:
     rdms = {}
     for group in groups:
         exact, _ = extractor.extract_layers_exact(loader, group, stimulus_ids)
-        rdms.update(_model_rdms(cfg, exact, group))
+        rdms.update(_model_rdms(cfg, exact, group, mesh))
     return rdms
 
 
-def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_test: int):
+def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_test: int,
+                 mesh=None):
     """Point scores and bootstraps of every (region, subject) pair:
     ({pair: (B,) bootstrap scores} or None without a bootstrap, {pair:
     point score}). All pairs share RandomState(42)'s index sets.
@@ -424,30 +459,34 @@ def _score_pairs(cfg, model_rdms: dict, neural_mats: dict, pair_layer: dict, n_t
     and Pearson take the per-pair route: the P neural RDMs, one batched
     point-score call, then ``bootstrap_rdm_correlation`` per pair (dense
     ranks for Spearman: under "auto" or true it never comes here, so the
-    JAX package's tie detection on this route is not needed)."""
+    JAX package's tie detection on this route is not needed). Under a
+    multi-rank ``mesh`` both routes shard the bootstrap iterations, and
+    the per-pair route's neural RDMs go through ``_rdm``."""
     method = cfg.get("compare_method", "spearman").lower()
     bootstrap = cfg.get("bootstrap", False)
     boot_idx = (bootstrap_indices(n_test, cfg.get("n_bootstrap", 1000), seed=42) if bootstrap
                 else np.zeros((0, int(n_test * 0.9)), np.int32))
     if method == "spearman" and not (bootstrap and cfg.get("bootstrap_exact_ties", "auto") is False):
-        boot_of, point_of = grouped_scoring(model_rdms, neural_mats, pair_layer, boot_idx)
+        boot_of, point_of = grouped_scoring(model_rdms, neural_mats, pair_layer, boot_idx,
+                                            mesh=mesh)
         return (boot_of if bootstrap else None), point_of
     pairs = list(neural_mats)
     device = next(iter(model_rdms.values())).device
-    neural_rdms = {k: compute_rdm(torch.as_tensor(neural_mats[k], device=device)) for k in pairs}
+    neural_rdms = {k: _rdm(torch.as_tensor(neural_mats[k], device=device), mesh, cfg)
+                   for k in pairs}
     points = compute_rdm_correlation_batched(
         torch.stack([model_rdms[pair_layer[k]] for k in pairs]),
         torch.stack([neural_rdms[k] for k in pairs]), method).tolist()
     boot_of = None
     if bootstrap:
         boot_of = {k: bootstrap_rdm_correlation(model_rdms[pair_layer[k]], neural_rdms[k],
-                                                method=method, indices=boot_idx)
+                                                method=method, indices=boot_idx, mesh=mesh)
                    for k in pairs}
     return boot_of, dict(zip(pairs, points))
 
 
 def _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbose,
-              plan) -> List[Dict]:
+              plan, mesh=None) -> List[Dict]:
     """Two-phase RSA over the extracted SRP store, boxed in the
     one-element list ``acts_box`` (emptied here, so the store is freed
     after phase 1), whose rows ``ids`` hold at least ``plan``'s."""
@@ -508,10 +547,11 @@ def _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbos
     unique_layers = sorted({l for rl in best.values() for l in rl.values()})
     test_stimuli = {sid: stimuli[sid] for sid in shared_test_ids if sid in stimuli}
     dl_test = make_stimuli_loader(test_stimuli, get_transform("imgnet"),
-                                  min(int(cfg.batchsize), 256), cfg.get("num_workers", 16))
+                                  mesh_batch_size(min(int(cfg.batchsize), 256), mesh),
+                                  cfg.get("num_workers", 16))
     rprint(f"  Re-extracting {len(unique_layers)} unique layers over "
            f"{len(test_stimuli)} test stimuli...", style="info")
-    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, shared_test_ids)
+    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, shared_test_ids, mesh)
     _sync(device)  # bill the queued RDM launches to phase 2
     LAST_PHASE_TIMES["phase2_extract_s"] = time.perf_counter() - t0
 
@@ -522,7 +562,7 @@ def _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbos
                    for r, s in pair_list}
     boot_by_pair, point_of_pair = _score_pairs(
         cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
-        len(shared_test_ids))
+        len(shared_test_ids), mesh)
     del neural_mats
     all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, sel_scores)
     LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
@@ -560,8 +600,7 @@ def _report(cfg, pair_list, layer_of, point_of, boot_of, sel_scores) -> List[Dic
             result["bootstrap_scores"] = boot.tolist()
             msg += f"  [95% CI: {result['ci_low']:.4f}, {result['ci_high']:.4f}]"
         rprint(msg, style="highlight")
-        if cfg.get("log_expdata"):
-            save_results([result], cfg.merge({"subject_idx": subj, "region": region}))
+        _save([result], cfg.merge({"subject_idx": subj, "region": region}))
         all_results.append(result)
     return all_results
 
@@ -595,7 +634,7 @@ def _lookup_nsd_best_layers(cfg, subjects, regions) -> Dict:
     return layers
 
 
-def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dict]:
+def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device, mesh=None) -> List[Dict]:
     """RSA on the NSD-Synthetic stimuli with each pair's layer inherited
     from its NSD eval: exact taps of the unique layers (one pass,
     normalised on the host; PC-reconstructed with ``reconstruct_from_pcs``),
@@ -613,13 +652,14 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dic
 
     model = load_model(cfg, device=device)
     extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+    extractor.mesh = mesh
     LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
 
     unique_layers = sorted({l for rl in best.values() for l in rl.values()})
     rprint(f"  Extracting {len(unique_layers)} unique layers...", style="info")
-    dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"), cfg.batchsize,
-                                  cfg.get("num_workers", 16))
-    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, test_ids)
+    dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"),
+                                  mesh_batch_size(cfg.batchsize, mesh), cfg.get("num_workers", 16))
+    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, test_ids, mesh)
     _sync(device)
     LAST_PHASE_TIMES["phase2_extract_s"] = timer.mark("phase2_extract")
 
@@ -627,7 +667,8 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device) -> List[Dic
     neural_mats = {(r, s): _neural_tensor(test_data["neural"][r][s], test_ids)
                    for r, s in pair_list}
     boot_by_pair, point_of_pair = _score_pairs(
-        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, len(test_ids))
+        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, len(test_ids),
+        mesh)
     del neural_mats
     all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, None)
     LAST_PHASE_TIMES["scoring_bootstrap_s"] = timer.mark("scoring")
@@ -652,8 +693,7 @@ def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
     n_bootstrap = cfg.get("n_bootstrap", 1000)
 
     def save(scores, region, subj):
-        if cfg.get("log_expdata"):
-            save_results(scores, cfg.merge({"subject_idx": subj, "region": region}))
+        _save(scores, cfg.merge({"subject_idx": subj, "region": region}))
         all_results.extend(scores)
 
     batched = cfg.get("encoding_batched", True) and all(

@@ -13,9 +13,13 @@ and write checkpoints named ``cfg{source}_to_{target}_{mode}_{seed
 letter}`` plus a metrics CSV. The learning rate follows the framework's
 warm-up + cosine table, read per step (``Optimizer.lr_at_step``).
 
-It runs on one card. The JAX script shards each batch over
-``parallel.auto.default_mesh``; the port has no multi-GPU counterpart
-of that yet.
+As the JAX script shards each batch over ``parallel.auto.default_mesh``,
+under ``torchrun`` (``WORLD_SIZE`` > 1) each rank joins the process group
+(``run.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``) and trains on its rows of every batch with the
+global-batch BatchNorm and averaged gradients of
+``train/trainer.train_step``; rank 0 alone writes the checkpoints, the
+config and the metrics.
 
 Usage:
   python -m visreps_tpu_torch.experiments.coarse_grain_benefits.curriculum_finetuning \\
@@ -83,21 +87,42 @@ def finetune_optimizer(model: nn.Module, args, steps_per_epoch: int):
 
 
 def run_curriculum_finetuning(args) -> list[dict]:
+    """The experiment on ``args.device``; under torchrun, on this rank's
+    device and rows (see the module doc)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return _finetune(args, resolve_device(args.device), None)
+    import torch.distributed as dist
+
+    from visreps_tpu_torch.parallel import default_mesh
+    from visreps_tpu_torch.run import init_distributed
+
+    device = resolve_device(init_distributed(args.device))
+    try:
+        return _finetune(args, device, default_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _finetune(args, device: torch.device, mesh) -> list[dict]:
     from visreps_tpu_torch.data.obj_cls import get_obj_cls_loader
+    from visreps_tpu_torch.models.layers import sync_batch_norm
     from visreps_tpu_torch.models.zoo import load_model
+    from visreps_tpu_torch.parallel import is_writer
     from visreps_tpu_torch.train import checkpoint as ckpt
     from visreps_tpu_torch.train.trainer import (
         calculate_cls_accuracy,
         images_to_device,
         labels_to_device,
+        rank_rows,
         train_step,
     )
 
-    device = resolve_device(args.device)
+    writer = is_writer()
     seed_letter = get_seed_letter(args.seed)
     exp_name = f"cfg{args.source_cfg_id}_to_{args.target_cfg_id}_{args.transfer_mode}_{seed_letter}"
     exp_dir = os.path.join(args.output_dir, exp_name)
-    os.makedirs(exp_dir, exist_ok=True)
+    if writer:
+        os.makedirs(exp_dir, exist_ok=True)
     rprint(f"Curriculum: {args.source_cfg_id}-way -> {args.target_cfg_id}-way "
            f"({args.transfer_mode}, seed {args.seed}) -> {exp_dir}", style="info")
 
@@ -109,6 +134,9 @@ def run_curriculum_finetuning(args) -> list[dict]:
     })
     model = replace_classifier_head(load_model(src_cfg, device=device), args.target_cfg_id,
                                     args.transfer_mode, args.seed)
+    group = None if mesh is None else mesh.get_group("data")
+    if group is not None:
+        sync_batch_norm(model, group)
 
     # Data with target-granularity labels.
     data_cfg = Config({
@@ -131,8 +159,9 @@ def run_curriculum_finetuning(args) -> list[dict]:
         "transfer_mode_config": TRANSFER_MODES[args.transfer_mode],
         "total_params": int(sum(p.numel() for p in model.parameters())),
     }
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
+    if writer:
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=2)
 
     results = []
 
@@ -148,7 +177,8 @@ def run_curriculum_finetuning(args) -> list[dict]:
         return top1
 
     evaluate_now(0, None, args.learning_rate)
-    ckpt.save_checkpoint(exp_dir, 0, model, {"val_top1": results[-1]["val_top1"]}, config)
+    if writer:
+        ckpt.save_checkpoint(exp_dir, 0, model, {"val_top1": results[-1]["val_top1"]}, config)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     step = 0
@@ -156,8 +186,10 @@ def run_curriculum_finetuning(args) -> list[dict]:
     for epoch in range(1, args.num_epochs + 1):
         total = n = 0
         for images, labels in loaders["train"]:
+            images, labels, rows = rank_rows(images, labels, mesh)
             loss, _ = train_step(model, optimizer, images_to_device(images, device),
-                                 labels_to_device(labels, device), generator, step)
+                                 labels_to_device(labels, device), generator, step,
+                                 group=group, rows=rows)
             step += 1
             total += float(loss)
             n += 1
@@ -166,14 +198,16 @@ def run_curriculum_finetuning(args) -> list[dict]:
                f"({time.time()-start:.0f}s elapsed)", style="info")
         if epoch % args.eval_freq == 0 or epoch == args.num_epochs:
             evaluate_now(epoch, train_loss, args.learning_rate)
-        ckpt.save_checkpoint(exp_dir, epoch, model, {"train_loss": train_loss}, config)
+        if writer:
+            ckpt.save_checkpoint(exp_dir, epoch, model, {"train_loss": train_loss}, config)
 
-    csv_path = os.path.join(exp_dir, "metrics.csv")
-    with open(csv_path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=list(results[0].keys()))
-        writer.writeheader()
-        writer.writerows(results)
-    rprint(f"Metrics -> {csv_path}", style="success")
+    if writer:
+        csv_path = os.path.join(exp_dir, "metrics.csv")
+        with open(csv_path, "w", newline="") as f:
+            out = csv.DictWriter(f, fieldnames=list(results[0].keys()))
+            out.writeheader()
+            out.writerows(results)
+        rprint(f"Metrics -> {csv_path}", style="success")
     return results
 
 

@@ -7,6 +7,14 @@ taps token-major) and projected by the seeded SRP on the device, one tap
 at a time: a tap's flattened copy is dropped before the next is made.
 Exact taps are written straight into their store rows. uint8 batches are
 normalised on the device, after a pinned, non-blocking host→device copy.
+
+Under a ``mesh`` (``parallel/``, one process per GPU) every rank reads
+the same batches, runs its rows of each (the evals round the batch size
+up to a multiple of the 'data' axis, ``parallel.shard.mesh_batch_size``)
+and all-gathers the SRP
+rows, or the raw taps of the exact passes, in global order, so every
+rank holds the single-process store (the JAX package's
+``extract_sharded_batch`` route, ``extractor.py:76-92, 323-331``).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from visreps_tpu_torch.core.logging import rprint
 from visreps_tpu_torch.data.transforms import DS_MEAN, DS_STD
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.ops.srp import SRPTransform
+from visreps_tpu_torch.parallel.shard import extract_sharded_batch
 
 
 def expand_return_nodes(tap_specs: dict, return_nodes: Sequence[str],
@@ -79,13 +88,15 @@ def _write_hwc(rows: torch.Tensor, t: torch.Tensor) -> None:
 
 class FeatureExtractor:
     """All-tap forward + SRP per batch, on ``device`` (CUDA unless
-    ``"cpu"`` is asked for)."""
+    ``"cpu"`` is asked for); each batch's rows split over ``mesh``'s
+    'data' axis when one is given."""
 
     def __init__(self, model: nn.Module, return_nodes: Sequence[str],
                  extract_pre_and_post: bool = True, srp_k: int = 4096,
                  srp_seed: int = 0, image_size: int = 224,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.image_size = image_size
         self.points, self.alias = expand_return_nodes(
@@ -103,6 +114,11 @@ class FeatureExtractor:
     def out_dims(self) -> dict[str, int]:
         return {name: self.srp.out_dim(d) for name, d in self.tap_dims.items()}
 
+    def _sharded(self, fn, x: np.ndarray) -> dict[str, torch.Tensor]:
+        """``fn`` of one host batch: on this rank's rows, all-gathered,
+        under a mesh; on the whole batch otherwise."""
+        return fn(x) if self.mesh is None else extract_sharded_batch(fn, x, self.mesh)
+
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """(B, H, W, 3) uint8 or normalised float32 batch → (B, 3, H, W)
         float32 on the device; uint8 is normalised there."""
@@ -115,7 +131,16 @@ class FeatureExtractor:
 
     def _taps(self, x: np.ndarray, points) -> dict[str, torch.Tensor]:
         """The raw taps of one host batch."""
-        return self.model(self._to_device(x), capture=points)[1]
+        return self._sharded(lambda rows: self.model(self._to_device(rows), capture=points)[1], x)
+
+    def _srp_rows(self, x: np.ndarray) -> dict[str, torch.Tensor]:
+        """The SRP rows of every tap of one host batch (under a mesh each
+        rank's rows, projected, then all-gathered)."""
+        if self.mesh is None:
+            return self._project(self._taps(x, self.points))
+        return extract_sharded_batch(
+            lambda rows: self._project(self.model(self._to_device(rows), capture=self.points)[1]),
+            x, self.mesh)
 
     def _point_of(self, layer: str) -> str:
         for p in self.points:
@@ -179,7 +204,7 @@ class FeatureExtractor:
                         rows = rows.pin_memory().to(self.device, non_blocking=True)
             pos = len(ids)
             m = len(keys) if kept is None else len(kept)
-            for name, out in self._project(self._taps(x, self.points)).items():
+            for name, out in self._srp_rows(x).items():
                 if kept is not None:
                     out = out.index_select(0, rows) if store == "device" else out.cpu()[rows]
                 acts[name][pos:pos + m] = out

@@ -17,7 +17,19 @@ one). ``BatchNorm2d`` / ``BatchNorm1d`` below add two cases:
     differ by bf16 rounding only.
   * a dense batch of one row in training mode: torch raises, the JAX
     package returns ``bias`` (x − mean = 0) and keeps the update finite
-    with ``n / max(n − 1, 1)``.
+    with ``n / max(n − 1, 1)``;
+  * data parallelism (``sync_batch_norm``): in training mode the batch
+    statistics are the global batch's, summed over the ranks of a
+    process group, as GSPMD computes them over a sharded batch. This is
+    ``nn.SyncBatchNorm``'s arithmetic (mean, then the biased variance
+    about it, by differentiable all-reduces; the running variance
+    unbiased over the global count), kept in these classes because
+    ``nn.SyncBatchNorm`` refuses CPU tensors (gloo ranks) and would drop
+    the bf16 case above.
+
+Dropout draws its mask for the global batch and keeps this rank's rows
+inside ``global_batch_rows``, so data-parallel ranks that share a
+generator's state apply the single-process mask.
 
 The initialisers draw from an explicit ``torch.Generator`` and follow
 the JAX package's families: Flax's defaults (lecun-normal truncated
@@ -30,6 +42,8 @@ own; the ResNet stem's −inf-padded 3×3/2 max pool is
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import Callable, Sequence
 
 import torch
@@ -85,9 +99,17 @@ def init_like_flax(model: nn.Module, gen: torch.Generator,
 class _BatchNorm:
     """Mixin for ``nn.BatchNorm*d``: an input in another dtype than the
     running statistics (bf16 compute) normalises with the affine
-    parameters widened to the statistics' dtype; see the module doc."""
+    parameters widened to the statistics' dtype, and a module given a
+    ``process_group`` normalises a training batch with the global
+    batch's statistics; see the module doc."""
+
+    #: Process group whose ranks' batches make up the global batch in
+    #: training mode (set by ``sync_batch_norm``); None: this batch alone.
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.process_group is not None:
+            return self._global_batch_norm(x)
         if x.dtype == self.running_mean.dtype:
             return super().forward(x)
         self._check_input_dim(x)
@@ -96,6 +118,42 @@ class _BatchNorm:
         dtype = self.running_mean.dtype
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight.to(dtype),
                             self.bias.to(dtype), self.training, self.momentum, self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training-mode batch norm over the process group's global batch:
+        the sum and count, then the squared deviations about the global
+        mean, all-reduced (backward sums the gradients over the ranks)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        self._check_input_dim(x)
+        dtype = self.running_mean.dtype
+        xs = x.to(dtype)
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = torch.full((1,), float(xs.numel() // xs.shape[1]), dtype=dtype, device=x.device)
+        total = all_reduce(torch.cat([xs.sum(dims), count]), group=self.process_group)
+        n = total[-1]
+        mean = total[:-1] / n
+        xc = xs - mean.view(shape)
+        var = all_reduce((xc * xc).sum(dims), group=self.process_group) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var * n / torch.clamp(n - 1, min=1))
+            self.num_batches_tracked.add_(1)
+        y = xc * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.to(dtype).view(shape) + self.bias.to(dtype).view(shape)
+        return y.to(x.dtype)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Every BatchNorm of ``model`` normalises training batches with the
+    statistics of the global batch over ``group`` (None: its own batch
+    again). In place; returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, _BatchNorm):
+            mod.process_group = group
+    return model
 
 
 class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
@@ -109,7 +167,10 @@ class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):
     variance decays towards 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and x.dim() == 2 and x.shape[0] == 1):
+        # a synced module counts the global batch's rows (every rank takes
+        # the global path, whatever its own row count)
+        if (not (self.training and x.dim() == 2 and x.shape[0] == 1)
+                or self.process_group is not None):
             return super().forward(x)
         xc = x - x.mean(dim=0, keepdim=True)
         var = (xc * xc).mean(dim=0)
@@ -157,11 +218,27 @@ class DenseBNReLU(nn.Module):
         return x
 
 
+_GLOBAL_ROWS: ContextVar = ContextVar("global_rows", default=None)
+
+
+@contextmanager
+def global_batch_rows(offset: int, total: int):
+    """Within this block ``dropout`` draws its mask for a global batch of
+    ``total`` rows and keeps rows [offset, offset + the input's rows):
+    a data-parallel rank's piece of the single-process mask."""
+    token = _GLOBAL_ROWS.set((offset, total))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
     """Flax's dropout with the mask drawn from ``gen``: keep each element
     with probability 1 − rate and scale kept ones by 1 / (1 − rate). The
     uniforms are float32 whatever ``x``'s dtype (a bf16 draw would move
-    the keep probability by up to 2⁻⁸)."""
+    the keep probability by up to 2⁻⁸); inside ``global_batch_rows`` they
+    are the global batch's, sliced to this rank's rows."""
     if rate == 0.0:
         return x
     if rate == 1.0:
@@ -169,5 +246,11 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.
     if gen is None:
         raise ValueError("training-mode dropout needs a torch.Generator (generator=...)")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    rows = _GLOBAL_ROWS.get()
+    if rows is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        offset, total = rows
+        mask = torch.rand((total, *x.shape[1:]), generator=gen, device=x.device) < keep
+        mask = mask[offset:offset + x.shape[0]]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -19,11 +19,18 @@ Model-side ranks are shared by the pairs that selected the same layer;
 iterations run in chunks as batched tensor ops.
 
 ``bootstrap_rdm_correlation`` scores ONE pair by any method
-(``ops/bootstrap.py:607`` of the JAX package, without its mesh route):
+(``ops/bootstrap.py:607`` of the JAX package):
 Spearman by dense ranks (``spearman_fast_scores``, sort-free, the Σd²
 form) or average-tie ranks (``spearman_exact_scores``), Kendall by the
 block-contraction bootstrap (``ops/kendall.py``), Pearson (and any other
 method) by gathering each iteration's sub-triangle (``gathered_scores``).
+
+Under a ``mesh`` whose 'data' axis has several ranks (and no more ranks
+than iterations), ``grouped_scoring``, ``single_pair_scoring`` and
+``bootstrap_rdm_correlation`` shard the iterations over 'data', as the
+JAX package's ``_grouped_scoring_sharded`` and ``_bootstrap_sharded`` do
+(``parallel/shard.shard_iterations``): each rank scores its slice of the
+index sets against the same RDMs, and every rank returns every score.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.kendall import bootstrap_kendall_fast
 from visreps_tpu_torch.ops.rdm import compute_rdm, index_sets, selection_masks, triu_indices
 from visreps_tpu_torch.ops.stats import kendall_tau_a, pearson_corr, spearman_corr, tie_groups
+from visreps_tpu_torch.parallel.mesh import axis_size
+from visreps_tpu_torch.parallel.shard import shard_iterations, shards_iterations
 
 _CORR = {"pearson": pearson_corr, "spearman": spearman_corr, "kendall": kendall_tau_a}
 
@@ -116,15 +125,34 @@ def grouped_core(model_tris: torch.Tensor, neural_tris: torch.Tensor,
     return scores, points
 
 
+def _grouped(model_tris, neural_tris, pair_model, idx, n, chunk, mesh):
+    """``grouped_core``, its iterations sharded over ``mesh``'s 'data'
+    axis where ``shards_iterations`` says so."""
+    if not shards_iterations(mesh, idx.shape[0]):
+        return grouped_core(model_tris, neural_tris, pair_model, idx, n, chunk)
+    local = -(-idx.shape[0] // axis_size(mesh))
+    points = []
+
+    def body(ix):
+        scores, p = grouped_core(model_tris, neural_tris, pair_model, ix, n,
+                                 max(1, min(chunk, local)))
+        points.append(p)
+        return scores
+
+    scores = shard_iterations(body, idx, mesh)
+    return scores, points[0]
+
+
 def grouped_scoring(model_rdms: dict, pair_neural_mats: dict, pair_layer: dict,
-                    indices: np.ndarray, chunk: int = 128):
+                    indices: np.ndarray, chunk: int = 128, mesh=None):
     """Whole scoring phase for every pair.
 
     model_rdms: {layer: (n, n) tensor}; pair_neural_mats: {pair: (n, v)
     responses}; pair_layer: {pair: layer}; indices: (B, m_sub) bootstrap
     index sets (B may be 0). The neural RDMs are built here, on the
     model RDMs' device. Returns ({pair: (B,) float64 bootstrap scores},
-    {pair: float point score}).
+    {pair: float point score}). Under a multi-rank ``mesh`` the
+    iterations shard over 'data'.
     """
     pair_keys = list(pair_neural_mats)
     layers = sorted({pair_layer[k] for k in pair_keys})
@@ -136,8 +164,8 @@ def grouped_scoring(model_rdms: dict, pair_neural_mats: dict, pair_layer: dict,
     neural_tris = torch.stack([
         compute_rdm(torch.as_tensor(np.asarray(pair_neural_mats[k], np.float32), device=device))[iu, ju]
         for k in pair_keys])
-    scores, points = grouped_core(model_tris, neural_tris, [row[pair_layer[k]] for k in pair_keys],
-                                  index_sets(indices, device), n, chunk)
+    scores, points = _grouped(model_tris, neural_tris, [row[pair_layer[k]] for k in pair_keys],
+                              index_sets(indices, device), n, chunk, mesh)
     scores = scores.cpu().numpy().astype(np.float64)
     points = points.cpu().numpy().astype(np.float64)
     return ({k: scores[i] for i, k in enumerate(pair_keys)},
@@ -145,14 +173,15 @@ def grouped_scoring(model_rdms: dict, pair_neural_mats: dict, pair_layer: dict,
 
 
 def single_pair_scoring(model_acts, neural_acts, indices: np.ndarray, chunk: int = 128,
-                        device=None):
+                        device=None, mesh=None):
     """Scoring of ONE (model, neural) pair from its activation matrices:
     the two RDMs (the kernel on the card), then ``grouped_core`` with
     one layer and one pair. ``model_acts`` (n, d) and ``neural_acts``
     (n, v) are tensors or arrays; they are scored on ``device`` (default:
     ``model_acts``' device; an array needs ``device``). Returns ((B,)
     float64 average-tie Spearman bootstrap scores, float average-tie
-    Spearman point score)."""
+    Spearman point score). Under a multi-rank ``mesh`` the iterations
+    shard over 'data'."""
     device = input_device(model_acts, device)
     model = torch.as_tensor(model_acts).to(device)
     neural = torch.as_tensor(neural_acts).to(device, torch.float32)
@@ -160,8 +189,8 @@ def single_pair_scoring(model_acts, neural_acts, indices: np.ndarray, chunk: int
     iu, ju = triu_indices(n, model.device)
     model_tris = compute_rdm(model.reshape(n, -1))[iu, ju][None]
     neural_tris = compute_rdm(neural.reshape(n, -1))[iu, ju][None]
-    scores, points = grouped_core(model_tris, neural_tris, [0], index_sets(indices, device), n,
-                                  chunk)
+    scores, points = _grouped(model_tris, neural_tris, [0], index_sets(indices, device), n,
+                              chunk, mesh)
     return scores[0].cpu().numpy().astype(np.float64), float(points[0])
 
 
@@ -221,7 +250,7 @@ def bootstrap_rdm_correlation(rdm_model, rdm_neural, n_bootstrap: int = 1000,
                               subsample_frac: float = 0.9, seed: int = 42,
                               method: str = "spearman", chunk: int = 250,
                               indices: np.ndarray | None = None,
-                              exact_ties: bool = False, device=None) -> np.ndarray:
+                              exact_ties: bool = False, device=None, mesh=None) -> np.ndarray:
     """(B,) float64 bootstrap distribution of one (model, neural) RDM
     pair's correlation, over ``indices`` (default: ``bootstrap_indices``
     of ``n_bootstrap``, ``subsample_frac`` and ``seed``), on ``device``
@@ -230,7 +259,8 @@ def bootstrap_rdm_correlation(rdm_model, rdm_neural, n_bootstrap: int = 1000,
     Spearman takes the dense-rank body (equal to scipy where the sampled
     values are distinct), or with ``exact_ties`` the average-tie one;
     Kendall the block-contraction body in chunks of at most 250; Pearson
-    the gathered sub-triangles."""
+    the gathered sub-triangles. Under a multi-rank ``mesh`` the
+    iterations shard over 'data', each rank's chunk at most its slice."""
     device = input_device(rdm_model, device)
     rdm_model = torch.as_tensor(rdm_model).to(device, torch.float32)
     rdm_neural = torch.as_tensor(rdm_neural).to(device, torch.float32)
@@ -238,13 +268,19 @@ def bootstrap_rdm_correlation(rdm_model, rdm_neural, n_bootstrap: int = 1000,
         indices = bootstrap_indices(rdm_model.shape[0], n_bootstrap, subsample_frac, seed)
     idx = index_sets(indices, device)
     method = method.lower()
-    if method == "spearman":
-        scores = (spearman_exact_scores(rdm_model, rdm_neural, idx) if exact_ties
-                  else spearman_fast_scores(rdm_model, rdm_neural, idx, chunk))
-    elif method == "kendall":
-        scores = bootstrap_kendall_fast(rdm_model, rdm_neural, idx, min(chunk, _KENDALL_CHUNK))
-    else:
-        scores = gathered_scores(rdm_model, rdm_neural, idx, method, chunk)
+    sharded = shards_iterations(mesh, idx.shape[0])
+    if sharded:
+        chunk = max(1, min(chunk, -(-idx.shape[0] // axis_size(mesh))))
+
+    def body(ix):
+        if method == "spearman":
+            return (spearman_exact_scores(rdm_model, rdm_neural, ix) if exact_ties
+                    else spearman_fast_scores(rdm_model, rdm_neural, ix, chunk))
+        if method == "kendall":
+            return bootstrap_kendall_fast(rdm_model, rdm_neural, ix, min(chunk, _KENDALL_CHUNK))
+        return gathered_scores(rdm_model, rdm_neural, ix, method, chunk)
+
+    scores = shard_iterations(body, idx, mesh) if sharded else body(idx)
     return scores.cpu().numpy().astype(np.float64)
 
 

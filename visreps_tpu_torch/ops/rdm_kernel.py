@@ -185,13 +185,33 @@ def _lib():
     return _LIB
 
 
+#: Columns of d per product of the CPU Gram (the kernel's PART_DEPTH).
+CPU_GRAM_DEPTH = 512
+
+
+def _gram(x: torch.Tensor) -> torch.Tensor:
+    """x·xᵀ in f32. On the CPU the product accumulates CPU_GRAM_DEPTH
+    columns at a time, in order: MKL's one-thread sgemm sums a small
+    Gram's long rows in one running sum (at (12, 139,968) 4e-5 of the
+    diagonal off an f64 Gram, 2e-6 with 8 threads), so a single product
+    made the RDM, and the ranks of its near-tied entries, follow
+    torch's thread count. Blocked, the Gram is the same to the bit on 1
+    to 8 threads and within 6e-7 of f64 there."""
+    if x.device.type != "cpu":
+        return x @ x.T
+    g = torch.zeros((x.shape[0], x.shape[0]), dtype=torch.float32)
+    for block in x.split(CPU_GRAM_DEPTH, dim=1):
+        g.addmm_(block, block.T)
+    return g
+
+
 def rdm_from_centered_reference(xc: torch.Tensor, std: torch.Tensor,
                                 correction: float = 1e-12) -> torch.Tensor:
     """Plain torch version of the kernel, in compute_rdm's f32
     arithmetic (an f32 Gram, so exact ±1 correlations clamp to the same
     tied 0 / 2 dissimilarities as in the JAX package)."""
     x = xc.to(torch.float32)
-    cov = (x @ x.T) / x.shape[1]
+    cov = _gram(x) / x.shape[1]
     corr = (cov / (std[:, None] * std[None, :] + correction)).clamp(-1.0, 1.0)
     corr.fill_diagonal_(1.0)
     return 1.0 - corr

@@ -15,13 +15,25 @@ writing one WAL results.db. Workers retain phase-1 rows
 the shared test ids over the full subject list
 (``shared_test_subjects``), so their rows are the single process's. The
 parent validates the config and waits; it never touches the card.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) each rank joins one process
+group — NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu`` —
+with a ``DIST_TIMEOUT_S`` (600 s) timeout on every collective, and the
+('data', 'model') mesh of ``parallel.default_mesh`` goes to the trainer
+and the eval: every rank computes the single-process results and rank 0
+alone writes them. A rank that raises exits non-zero, and torchrun stops
+the others. ``--procs`` cannot be combined with several ranks:
+
+  torchrun --nproc_per_node K -m visreps_tpu_torch.run --mode eval ...
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+from datetime import timedelta
 from pathlib import Path
 
 from visreps_tpu_torch.core.config import Config, load_config
@@ -176,6 +188,33 @@ def _run_sharded(argvs: list[list[str]]) -> int:
     return rc
 
 
+#: Seconds a collective may wait before the process group fails it, so
+#: that a lost rank ends the run instead of hanging it.
+DIST_TIMEOUT_S = 600
+
+
+def init_distributed(device: str | None):
+    """Join the process group torchrun describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``) and return this
+    rank's device: ``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo
+    when ``device`` is "cpu". CUDA without NCCL raises: no collective
+    falls back to gloo or the host."""
+    import torch
+    import torch.distributed as dist
+
+    if device is not None and torch.device(device).type == "cpu":
+        backend, dev = "gloo", "cpu"
+    else:
+        if not dist.is_nccl_available():
+            raise RuntimeError("several ranks on CUDA need NCCL, which this torch lacks; "
+                               "pass --device cpu for gloo ranks on the CPU")
+        dev = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    dist.init_process_group(backend, timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    return dev
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="visreps PyTorch/CUDA port")
     parser.add_argument("--mode", choices=["train", "eval"], default="eval")
@@ -195,20 +234,43 @@ def main(argv=None):
     overrides.append(f"mode={args.mode}")
     cfg = validate_config(load_config(args.config or f"configs/{args.mode}/base.json", overrides))
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.procs > 1:
+        raise ValueError(f"--procs {args.procs} shards subjects over processes; it cannot run "
+                         f"under torchrun's {world} ranks")
     worker_argvs = _shard_worker_argvs(args, cfg)
     if worker_argvs:
+        if cfg.get("log_expdata"):
+            from visreps_tpu_torch.core.db import init_db
+
+            # The workers share one WAL results.db, made here before they
+            # start: two first connections switching a new file to WAL at
+            # once can fail one with "database is locked".
+            init_db(os.environ.get("VISREPS_RESULTS_DB", "results.db")).close()
         raise SystemExit(_run_sharded(worker_argvs))
 
-    if cfg.mode == "train":
-        from visreps_tpu_torch.train.trainer import Trainer
+    device, mesh = args.device, None
+    if world > 1:
+        from visreps_tpu_torch.parallel.auto import default_mesh
 
-        trainer = Trainer(cfg, device=args.device)
-        trainer.train()
-        return trainer
+        device = init_distributed(args.device)
+        mesh = default_mesh(cfg)
+    try:
+        if cfg.mode == "train":
+            from visreps_tpu_torch.train.trainer import Trainer
 
-    from visreps_tpu_torch import evals
+            trainer = Trainer(cfg, device=device, mesh=mesh)
+            trainer.train()
+            return trainer
 
-    return evals.eval(cfg, device=args.device)
+        from visreps_tpu_torch import evals
+
+        return evals.eval(cfg, device=device, mesh=mesh)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,16 @@ epoch E's checkpoint and optimizer state (``train/checkpoint.py``; the
 JAX package's own files too) at epoch E + 1, step E × steps_per_epoch.
 As in the JAX package, a resumed run draws fresh dropout masks from the
 seed and its loaders start their shuffle orders again.
+
+Data parallelism (a ``mesh`` from ``parallel.default_mesh`` under
+``torchrun``; the JAX package's GSPMD step, ``trainer.py:136-220``):
+every rank reads the same global batch and trains on its
+``process_slice`` of it; BatchNorm takes the global batch's statistics
+(``models/layers.sync_batch_norm``), dropout the global batch's mask
+(``global_batch_rows``; every rank's generator stays in step), and the
+gradients and the loss are averaged over the ranks weighted by their
+rows before the optimizer step, so each rank makes the single-process
+update. Only rank 0 writes checkpoints, metrics and wandb.
 """
 from __future__ import annotations
 
@@ -38,7 +48,10 @@ from visreps_tpu_torch.core.logging import MetricsLogger, is_interactive_environ
 from visreps_tpu_torch.data.augment import augment_batch
 from visreps_tpu_torch.data.obj_cls import get_obj_cls_loader
 from visreps_tpu_torch.device import resolve_device
+from visreps_tpu_torch.models.layers import global_batch_rows, sync_batch_norm
 from visreps_tpu_torch.models.zoo import load_model
+from visreps_tpu_torch.parallel.feed import local_batch_size, process_slice
+from visreps_tpu_torch.parallel.mesh import axis_size, is_writer
 from visreps_tpu_torch.train import checkpoint as ckpt
 from visreps_tpu_torch.train.optim import Optimizer, cross_entropy_loss, lr_at_epoch
 
@@ -85,19 +98,64 @@ def forward_logits(model: nn.Module, images: torch.Tensor, generator: torch.Gene
     return logits
 
 
+def rank_rows(images, labels, mesh):
+    """This rank's rows of a host batch under a mesh whose 'data' axis has
+    several ranks (``process_slice``): (images, labels, (offset, global
+    rows)); the whole batch and None otherwise."""
+    if axis_size(mesh) == 1:
+        return images, labels, None
+    piece = process_slice(len(labels), mesh.get_local_rank("data"), axis_size(mesh))
+    return images[piece], labels[piece], (piece.start, len(labels))
+
+
+def _average_over_ranks(model: nn.Module, loss: torch.Tensor, weight: float,
+                        group) -> torch.Tensor:
+    """Σ over the group's ranks of ``weight`` (this rank's share of the
+    global batch) × its gradients, in place, in one flat all-reduce with
+    the loss; returns the global batch's loss."""
+    import torch.distributed as dist
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.detach().reshape(1)])
+    flat.mul_(weight)
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+    return flat[-1]
+
+
 def train_step(model: nn.Module, optimizer: Optimizer, images: torch.Tensor,
                labels: torch.Tensor, generator: torch.Generator | None,
                global_step: int, compute_dtype: torch.dtype = torch.float32,
+               group=None, rows: tuple[int, int] | None = None,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update: train-mode forward in ``compute_dtype`` (dropout masks
     from ``generator``), float32 loss, backward, the gradient norms and
     the optimizer step. Returns (loss, pre-clip global gradient norm) as
-    device tensors."""
+    device tensors.
+
+    Data parallel: ``images`` are rows [offset, offset + len) of a global
+    batch of ``total`` rows (``rows=(offset, total)``) and ``group`` the
+    ranks that hold the rest; the model's BatchNorms should be synced to
+    ``group``. The loss and gradients are then the global batch's."""
     model.train()
     optimizer.zero_grad()
-    logits = forward_logits(model, images, generator, compute_dtype)
-    loss = cross_entropy_loss(logits, labels)
+    if rows is None:
+        logits = forward_logits(model, images, generator, compute_dtype)
+    else:
+        with global_batch_rows(*rows):
+            logits = forward_logits(model, images, generator, compute_dtype)
+    # A rank whose piece of a short last batch is empty still joins every
+    # collective, with a zero loss (the mean over no rows would be NaN).
+    loss = cross_entropy_loss(logits, labels) if len(labels) else logits.sum() * 0.0
     loss.backward()
+    if group is not None:
+        loss = _average_over_ranks(model, loss, images.shape[0] / rows[1], group)
     grad_norm = optimizer.step(global_step)
     return loss.detach(), grad_norm
 
@@ -128,11 +186,14 @@ def calculate_cls_accuracy(loader, model: nn.Module, device: torch.device):
 
 class Trainer:
     """Object-classification trainer on ``device`` (CUDA unless ``"cpu"``
-    is asked for)."""
+    is asked for), data parallel over ``mesh``'s 'data' axis when it has
+    several ranks."""
 
-    def __init__(self, cfg, device: str | torch.device | None = None):
+    def __init__(self, cfg, device: str | torch.device | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if axis_size(mesh) > 1 else None
+        self.group = None if self.mesh is None else self.mesh.get_group("data")
         self._setup()
 
     def _setup(self):
@@ -148,6 +209,10 @@ class Trainer:
         num_classes = (cfg.pca_n_classes if cfg.get("pca_labels")
                        else self.datasets["train"].num_classes)
         self.model = load_model(cfg, num_classes=num_classes, device=self.device)
+        if self.group is not None:
+            local_batch_size(cfg.batchsize, self.mesh)  # raises unless it divides
+            self._broadcast_state()
+            sync_batch_norm(self.model, self.group)
         self.steps_per_epoch = max(1, len(self.loaders["train"]))
         mask = self.model.trainable_mask() if hasattr(self.model, "trainable_mask") else None
         self.optimizer = Optimizer(self.model, cfg, self.steps_per_epoch, mask)
@@ -160,14 +225,35 @@ class Trainer:
         self.checkpoint_dir = None
         self.cfg_dict = None
         self.start_epoch = 1
+        writer = is_writer()
         if cfg.get("log_checkpoints"):
-            self.checkpoint_dir, self.cfg_dict = ckpt.setup_checkpoint_dir(cfg, self.model)
+            if writer:
+                self.checkpoint_dir, self.cfg_dict = ckpt.setup_checkpoint_dir(cfg, self.model)
+            if self.group is not None:
+                self.checkpoint_dir = self._from_writer(self.checkpoint_dir)
             resume_epoch = cfg.get("resume_from_epoch", 0)
             if resume_epoch:
                 self._resume(resume_epoch)
-            else:
+            elif writer:
                 ckpt.save_checkpoint(self.checkpoint_dir, 0, self.model, {}, self.cfg_dict)
-        self.metrics_logger = MetricsLogger(cfg, self.checkpoint_dir)
+        self.metrics_logger = MetricsLogger(cfg if writer else cfg.merge({"use_wandb": False}),
+                                            self.checkpoint_dir if writer else None)
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters and buffers on every rank of the group."""
+        import torch.distributed as dist
+
+        src = dist.get_global_rank(self.group, 0)
+        for t in self.model.state_dict().values():
+            dist.broadcast(t, src, group=self.group)
+
+    def _from_writer(self, value):
+        """Rank 0's ``value`` (a picklable object) on every rank."""
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return box[0]
 
     def _resume(self, epoch: int) -> None:
         """Epoch ``epoch``'s checkpoint (either package's) into the model,
@@ -201,12 +287,14 @@ class Trainer:
             self.loader_wait_s += time.perf_counter() - t0
             if batch is None:
                 break
-            images = images_to_device(batch[0], self.device)
+            x, y, rows = rank_rows(batch[0], batch[1], self.mesh)
+            images = images_to_device(x, self.device)
             if self.device_augment:
                 images = augment_batch(images, self.generator)
             loss, grad_norm = train_step(self.model, self.optimizer, images,
-                                         labels_to_device(batch[1], self.device),
-                                         self.generator, self.global_step, self.compute_dtype)
+                                         labels_to_device(y, self.device),
+                                         self.generator, self.global_step, self.compute_dtype,
+                                         self.group, rows)
             self.global_step += 1
             n += 1
             loss, grad_norm = torch.stack([loss, grad_norm]).tolist()  # one host read
@@ -236,7 +324,8 @@ class Trainer:
                     metrics[f"{split}_top5"] = top5
                 self.metrics_logger.log_metrics(epoch, epoch_loss, metrics)
 
-            if self.checkpoint_dir and epoch % cfg.get("checkpoint_interval", 5) == 0:
+            if (self.checkpoint_dir and is_writer()
+                    and epoch % cfg.get("checkpoint_interval", 5) == 0):
                 opt_state = ({"optimizer": self.optimizer.name,
                               "state": self.optimizer.named_state()}
                              if cfg.get("save_resume_state") else None)
