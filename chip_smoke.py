@@ -260,6 +260,16 @@ non-zero without the final line:
      eigh (alone and in a batch of 14), 20 small inverses one by one
      and batched, peak memory, and the operation counts of the
      selection sweep and the refits with their bounds.
+ 15'. encoding_sharded — the encoding phase's first subject (9,000 train
+     and 1,000 test rows, 2 regions × 7,604 voxels, 14 taps) again,
+     through ``compute_encoding_scores_subjects(..., mesh=)`` on a one-rank
+     NCCL group (a FileStore in the temp directory): the row-sharded
+     route's all-reduces, row gathers and broadcasts run on the card at
+     world size 1 (the eval itself takes that route only at two ranks or
+     more). Its layers, scores, CIs and selection scores must equal the
+     encoding phase's within 1e-4, every ridge tensor lie on the card, every
+     collective run and no RDM launch. Prints the sub-phase seconds,
+     peak memory, the collective calls and the largest differences.
  16. encoding_check — one subject's ``compute_encoding_scores_subject``
      on planted data (y = tap3·W + noise; 3 taps, 2 regions × 400
      voxels, 1,000 test rows) on both solver routes: n_train 3,200 and
@@ -3234,10 +3244,11 @@ def time_linalg() -> dict:
     lam, v_eig = ridge._gram_eigh(g)
     c = x.T @ y
     alphas = torch.as_tensor(ridge.default_alphas(), dtype=torch.float32, device="cuda")
-    sweep_ms = {p: time_ms(lambda: ridge._wood_cv_scores(x, y, lam, v_eig, c, alphas, 5, p), 1)[0]
+    folds = ridge._Folds(y, 5)
+    sweep_ms = {p: time_ms(lambda: ridge._wood_cv_scores(x, folds, lam, v_eig, c, alphas, p), 1)[0]
                 for p in ("high", "highest")}
     tf32_ops, f32_ops = wood_cv_ops(7200, 4096, 15208)
-    del y, lam, v_eig, c
+    del y, folds, lam, v_eig, c
     batch = g.expand(14, -1, -1).contiguous()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3262,9 +3273,10 @@ def time_linalg() -> dict:
                 "highest": 1e3 * (tf32_ops + f32_ops) / FMA_PEAK_OPS["float32"]}}
 
 
-def phase_encoding(tmp: Path) -> None:
+def phase_encoding(tmp: Path) -> dict:
     """The encoding-score eval through ``run.main`` on its own NSD-count
-    fixture; checks results, rows, scores, devices and route."""
+    fixture; checks results, rows, scores, devices and route. Returns the
+    results and the first subject's inputs to the encoding functions."""
     import torch
 
     from visreps_tpu_torch import evals, run
@@ -3293,6 +3305,7 @@ def phase_encoding(tmp: Path) -> None:
         return call
 
     def probe_store(subject_inputs, **kwargs):
+        store["first_subject"] = next(iter(subject_inputs.values()))
         for a_tr, a_te, _, _ in subject_inputs.values():
             for t in (*a_tr.values(), *a_te.values()):
                 store.setdefault("devices", set()).add(t.device.type)
@@ -3366,7 +3379,7 @@ def phase_encoding(tmp: Path) -> None:
     emit({"phase": "encoding", "seconds": wall, "fixture_s": fixture_s,
           "n_stimuli": meta["n_stimuli"], "voxels_per_region": ENCODING["n_voxels"],
           "n_results": len(results), "db_rows": rows,
-          "store": {k: sorted(v) for k, v in store.items()},
+          "store": {k: sorted(store[k]) for k in ("devices", "dtypes")},
           "ridge_tensor_devices": sorted(tensor_devices), "ridge_calls": dict(calls),
           "refit_jobs": [[s, l, v] for (s, l), v in jobs.items()], "rdm_launches": rdm_launches,
           "images_per_s": meta["n_stimuli"] / phases["extraction_s"],
@@ -3383,9 +3396,97 @@ def phase_encoding(tmp: Path) -> None:
                      for r in results], "problems": problems})
     if problems:
         raise RuntimeError("; ".join(problems))
-    del results
     torch.cuda.empty_cache()
     emit({"phase": "encoding_linalg", **time_linalg()})
+    return {"results": results, "inputs": store["first_subject"], "regions": regions}
+
+
+def phase_encoding_sharded(tmp: Path, enc: dict) -> None:
+    """The encoding phase's first subject (9,000 train and 1,000 test rows,
+    2 regions × 7,604 voxels, 14 taps at SRP k = 4096) through
+    ``compute_encoding_scores_subjects(..., mesh=)``, the row-sharded route,
+    on a one-rank NCCL group (a FileStore in ``tmp``): every collective of
+    ``parallel.shard.RowBlocks`` (sums, gathers by row index, broadcasts)
+    runs on the card at world size 1. Holds layers, scores, CIs and
+    selection scores to the encoding phase's rows within ENC_TOL; every
+    ridge tensor on the card; no RDM launch. Prints the encoding module's
+    sub-phase seconds, the peak memory, the collective calls and the
+    largest differences."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from visreps_tpu_torch.analysis import encoding
+    from visreps_tpu_torch.ops import rdm_kernel, ridge
+    from visreps_tpu_torch.parallel import make_mesh
+    from visreps_tpu_torch.parallel.shard import RowBlocks
+
+    regions = enc["regions"]
+    calls, tensor_devices = Counter(), set()
+    originals = {name: getattr(ridge, name) for name in ("_wood_cv_scores", "_ridge_cv_impl",
+                                                          "_gram")}
+    collectives = {name: getattr(RowBlocks, name) for name in ("sum", "gather", "share")}
+
+    def probe(name, fn, devices):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            if devices:  # (a gather's row positions are a host index)
+                tensor_devices.update(a.device.type for a in args if isinstance(a, torch.Tensor))
+            return fn(*args, **kwargs)
+        return call
+
+    t_phase = time.perf_counter()
+    store = dist.FileStore(str(tmp / "nccl_store_encoding"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    for name, fn in originals.items():
+        setattr(ridge, name, probe(name, fn, True))
+    for name, fn in collectives.items():
+        setattr(RowBlocks, name, probe(name, fn, False))
+    try:
+        mesh = make_mesh(data=1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rdm_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = encoding.compute_encoding_scores_subjects(
+            {0: enc["inputs"]}, bootstrap=True, n_bootstrap=1000, cv_precision="high",
+            device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rdm_launches = rdm_kernel.LAUNCHES
+    finally:
+        for name, fn in originals.items():
+            setattr(ridge, name, fn)
+        for name, fn in collectives.items():
+            setattr(RowBlocks, name, fn)
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ref = {r: [enc["results"][i]] for i, r in enumerate(regions)}  # subject 0's rows
+    diff = compare_encoding(out[0], ref)
+    problems = []
+    if not diff["same_layers"]:
+        problems.append(f"layers {diff['layers']} against {[ref[r][0]['layer'] for r in regions]}")
+    if not max(diff["score"], diff["ci_low"], diff["ci_high"], diff["selection"]) <= ENC_TOL:
+        problems.append(f"scores, CIs or selection scores beyond {ENC_TOL}")
+    if tensor_devices != {"cuda"}:
+        problems.append(f"ridge tensors on {sorted(tensor_devices)}")
+    if not all(calls[name] for name in collectives):
+        problems.append(f"a RowBlocks collective never ran: {dict(calls)}")
+    if calls["_ridge_cv_impl"]:
+        problems.append("the per-fold-eigh route ran")
+    if rdm_launches:
+        problems.append(f"the encoding route launched the RDM kernel {rdm_launches} times")
+    emit({"phase": "encoding_sharded", "seconds": wall, "wall_s": time.perf_counter() - t_phase,
+          "backend": "nccl", "world_size": 1, "subject": 0, "regions": len(regions),
+          "phase_times_s": dict(encoding.LAST_PHASE_TIMES), "peak_mem_gb": peak,
+          "calls": dict(calls), "ridge_tensor_devices": sorted(tensor_devices),
+          "rdm_launches": rdm_launches, "max_diff": diff, "tol": ENC_TOL,
+          "problems": problems})
+    if problems:
+        raise RuntimeError(f"encoding_sharded: {problems}")
 
 
 def planted_subject(n_train: int, d: int, seed: int = 0):
@@ -5689,7 +5790,7 @@ def main() -> int:
         rsa_runs.append(phase_nsd73k_vgg16(meta73, tmp))
         phase_nsd73k_encoding(meta73)
         shutil.rmtree(Path(meta73["stimuli"]).parent)
-        phase_encoding(tmp)
+        phase_encoding_sharded(tmp, phase_encoding(tmp))
         cg = phase_coarsegrain(meta, tmp)
         rsa_runs.append(cg["eval"])
         cg_rsa = phase_cg_benefits(meta, tmp, cg)

@@ -12,6 +12,12 @@ The ridge work is ``ops/ridge.py``; every tensor lives on ``device``.
 With ``reconstruct_pca_k`` the selected layer's train and test rows are
 rebuilt from the top-k PCs of its train rows before the refit
 (``ops/pca.py``), as the JAX package does.
+
+Under a mesh (``mesh=``, the eval's row-sharded route) each rank holds
+only its row block of every train and test array whose row count the
+'data' axis divides (the JAX package's rule; others stay whole), and the
+ridge sums, gathers and broadcasts over the 'data' ranks
+(``ops/ridge.py``); every rank returns the same results.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 from visreps_tpu_torch.core.logging import rprint
 from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.bootstrap import percentile_ci
-from visreps_tpu_torch.ops.pca import fit_pca
+from visreps_tpu_torch.ops.pca import PCATransform, fit_pca
 from visreps_tpu_torch.ops.ridge import (
     correlation_score,
     default_alphas,
@@ -34,27 +40,40 @@ from visreps_tpu_torch.ops.ridge import (
     ridge_cv_selection_val_r,
 )
 from visreps_tpu_torch.ops.znorm import znorm, znorm_fit
+from visreps_tpu_torch.parallel.shard import RowBlocks
 
 #: Wall-clock seconds of the last compute_encoding_scores_subjects call:
 #: selection_s (selection sweep), refit_s (cross-subject refits),
-#: assemble_bootstrap_s (per-region scores and bootstraps).
+#: assemble_bootstrap_s (per-region scores and bootstraps). This process's
+#: own under a mesh.
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
-def _reconstructed(x_tr: torch.Tensor, x_te: torch.Tensor, k: int | None):
+def _reconstructed(x_tr: torch.Tensor, x_te: torch.Tensor, k: int | None, rows=None):
     """Train and test rows rebuilt from the top-k PCs of the train rows
-    (unchanged without ``k``)."""
+    (unchanged without ``k``). Under row blocks the PCs are fitted on the
+    gathered train rows and taken from data rank 0, and each rank rebuilds
+    its own rows."""
     if k is None:
         return x_tr, x_te
-    pca = fit_pca(x_tr, min(k, x_tr.shape[1]))
+    pca = fit_pca(x_tr if rows is None else rows.cat(x_tr), min(k, x_tr.shape[1]))
+    if rows is not None:
+        pca = PCATransform(rows.share(pca.mean.contiguous(), 0),
+                           rows.share(pca.components.contiguous(), 0), pca.explained_variance)
     return pca.reconstruct(x_tr), pca.reconstruct(x_te)
 
 
-def _flatten_f32(acts: Dict, device) -> Dict[str, torch.Tensor]:
-    """{layer: (n, ...) array or tensor} → {layer: (n, features) f32 tensor on device}."""
+def _rows_here(rows) -> slice:
+    """This rank's rows of an array laid out as ``rows`` (all without)."""
+    return slice(None) if rows is None else rows.block()
+
+
+def _flatten_f32(acts: Dict, device, rows=None) -> Dict[str, torch.Tensor]:
+    """{layer: (n, ...) array or tensor} → {layer: (n, features) f32 tensor
+    on device}, only this rank's block under ``rows``."""
     out = {}
     for l, a in acts.items():
-        t = torch.as_tensor(a, device=device)
+        t = torch.as_tensor(a[_rows_here(rows)], device=device)
         out[l] = (t.reshape(t.shape[0], -1) if t.dim() > 2 else t).to(torch.float32)
     return out
 
@@ -187,7 +206,7 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
                                     verbose: bool = False,
                                     reconstruct_pca_k: int | None = None,
                                     cv_precision: str = "highest", device=None,
-                                    _defer: bool = False) -> Dict:
+                                    mesh=None, _defer: bool = False) -> Dict:
     """All-region encoding scores for ONE subject in one batched pass.
 
     Within a subject X is the same for every region (same stimuli), so:
@@ -197,14 +216,21 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
     ``ridge_cv_selection_val_r`` per layer width; and each UNIQUE selected
     layer is refit once, predicting all its regions' voxels together.
     The seeded split and bootstrap draws are those of a per-pair
-    ``RandomState(seed)``. Returns {region: [result]}.
+    ``RandomState(seed)``. With ``mesh`` (a ``DeviceMesh`` whose 'data'
+    ranks all call this) each rank holds and stacks only its row block of
+    the inputs (whole arrays on every rank); every rank returns the same
+    results. Returns {region: [result]}.
     """
     regions = list(y_train)
     device = input_device(next(iter(acts_train.values())), device)
-    train_f32 = _flatten_f32(acts_train, device)
-    test_f32 = _flatten_f32(acts_test, device)
-    y_train = {r: torch.as_tensor(y, dtype=torch.float32, device=device) for r, y in y_train.items()}
-    y_test = {r: torch.as_tensor(y, dtype=torch.float32, device=device) for r, y in y_test.items()}
+    n_train, n_test = len(y_train[regions[0]]), len(y_test[regions[0]])
+    rows, rows_te = RowBlocks.of(n_train, mesh), RowBlocks.of(n_test, mesh)
+    train_f32 = _flatten_f32(acts_train, device, rows)
+    test_f32 = _flatten_f32(acts_test, device, rows_te)
+    y_train = {r: torch.as_tensor(y[_rows_here(rows)], dtype=torch.float32, device=device)
+               for r, y in y_train.items()}
+    y_test = {r: torch.as_tensor(y[_rows_here(rows_te)], dtype=torch.float32, device=device)
+              for r, y in y_test.items()}
     layers = list(train_f32)
     alphas = default_alphas()
 
@@ -215,8 +241,6 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
         col_slices[r] = slice(off, off + y_train[r].shape[1])
         off += y_train[r].shape[1]
 
-    n_train = y_tr_cat.shape[0]
-    n_test = y_test[regions[0]].shape[0]
     rng = np.random.RandomState(seed)
     split = int(0.8 * n_train)
     perm = rng.permutation(n_train)
@@ -230,7 +254,7 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
     for group in widths.values():
         xs = torch.stack([train_f32[l] for l in group])
         rs = ridge_cv_selection_val_r(xs, y_tr_cat, fit_idx, val_idx, alphas=alphas,
-                                      precision=cv_precision, device=device)
+                                      precision=cv_precision, device=device, rows=rows)
         del xs
         for l, row in zip(group, rs.cpu().numpy()):
             val_r[l] = row
@@ -252,7 +276,7 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
         boot_idx = torch.as_tensor(_boot_indices(rng, n_test, n_bootstrap), dtype=torch.long,
                                    device=device)
     jobs = _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best,
-                             reconstruct_pca_k)
+                             reconstruct_pca_k, rows, rows_te)
     if _defer:
         return {"jobs": jobs, "selection": per_region_selection, "best": per_region_best,
                 "boot_idx": boot_idx, "col_slices": col_slices, "bootstrap": bootstrap}
@@ -260,26 +284,29 @@ def compute_encoding_scores_subject(acts_train: Dict, acts_test: Dict, y_train: 
     for j in jobs:
         y_tr_m, y_te_m = _job_targets(j)
         refits.append(ridge_cv_refit_predict(j["x_tr"], y_tr_m, j["x_te"], y_te_m, alphas=alphas,
-                                             precision=cv_precision, device=device))
+                                             precision=cv_precision, device=device,
+                                             rows=rows, rows_te=rows_te))
     return _assemble_subject_results(jobs, refits, per_region_selection, bootstrap, boot_idx,
                                      col_slices)
 
 
 def _build_refit_jobs(train_f32, test_f32, y_train, y_test, regions, per_region_best,
-                      reconstruct_pca_k=None):
+                      reconstruct_pca_k=None, rows=None, rows_te=None):
     """One refit job per unique selected layer (its rows PCA-reconstructed
     with ``reconstruct_pca_k``). Jobs hold REFERENCES to the per-region
     target blocks (concatenated only at refit time), so deferring refits
-    across subjects never duplicates the targets."""
+    across subjects never duplicates the targets; and the row layouts of
+    the train and test blocks (None for whole arrays)."""
     by_layer: Dict[str, list] = {}
     for r in regions:
         by_layer.setdefault(per_region_best[r], []).append(r)
     jobs = []
     for layer, members in by_layer.items():
-        x_tr, x_te = _reconstructed(train_f32[layer], test_f32[layer], reconstruct_pca_k)
+        x_tr, x_te = _reconstructed(train_f32[layer], test_f32[layer], reconstruct_pca_k, rows)
         jobs.append({"layer": layer, "members": members, "x_tr": x_tr, "x_te": x_te,
                      "y_tr_parts": [y_train[r] for r in members],
-                     "y_te_parts": [y_test[r] for r in members]})
+                     "y_te_parts": [y_test[r] for r in members],
+                     "rows": rows, "rows_te": rows_te})
     return jobs
 
 
@@ -328,13 +355,15 @@ def compute_encoding_scores_subjects(subject_inputs: Dict, bootstrap: bool = Tru
                                      n_bootstrap: int = 1000, seed: int = 42,
                                      verbose: bool = False,
                                      reconstruct_pca_k: int | None = None,
-                                     cv_precision: str = "highest", device=None) -> Dict:
+                                     cv_precision: str = "highest", device=None,
+                                     mesh=None) -> Dict:
     """Multi-subject encoding eval with CROSS-SUBJECT grouped refits.
 
     subject_inputs: {subject: (acts_train, acts_test, y_train, y_test)}.
     Selection runs per subject; then every (subject, unique layer) refit's
     full-train eigendecomposition runs in one batched eigh before the
-    per-region assembly. Numbers equal per-subject calls'.
+    per-region assembly. Numbers equal per-subject calls'. ``mesh``: the
+    row-sharded route of ``compute_encoding_scores_subject``.
     Returns {subject: {region: [result]}}.
     """
     LAST_PHASE_TIMES.clear()
@@ -345,7 +374,7 @@ def compute_encoding_scores_subjects(subject_inputs: Dict, bootstrap: bool = Tru
         deferred[subj] = compute_encoding_scores_subject(
             a_tr, a_te, y_tr, y_te, bootstrap=bootstrap, n_bootstrap=n_bootstrap, seed=seed,
             verbose=verbose, reconstruct_pca_k=reconstruct_pca_k, cv_precision=cv_precision,
-            device=device, _defer=True)
+            device=device, mesh=mesh, _defer=True)
     LAST_PHASE_TIMES["selection_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

@@ -37,10 +37,11 @@ the card — except, under a multi-rank mesh, those of at least
 ``rdm_shard_threshold`` (4096) stimuli, which take the row-block ring
 ``parallel.rdm_sharded`` (``_rdm``). Under a mesh (``torchrun``, one
 process per GPU; ``parallel.default_mesh``) extraction batches split over
-the 'data' axis and the bootstrap iterations too; every rank computes the
-single-process results and only rank 0 writes results.db. Models outside
-the port raise NotImplementedError naming the ROADMAP.md item that ports
-them.
+the 'data' axis and the bootstrap iterations too, and the batched encoding
+eval row-shards its designs and targets (``_eval_encoding``); every rank
+computes the single-process results and only rank 0 writes results.db.
+Models outside the port raise NotImplementedError naming the ROADMAP.md
+item that ports them.
 """
 from __future__ import annotations
 
@@ -92,7 +93,7 @@ from visreps_tpu_torch.ops.bootstrap import (
 from visreps_tpu_torch.ops.pca import reconstruct_from_pcs
 from visreps_tpu_torch.ops.rdm import compute_rdm, compute_rdm_correlation_batched
 from visreps_tpu_torch.parallel.auto import default_mesh
-from visreps_tpu_torch.parallel.mesh import is_writer, world_size
+from visreps_tpu_torch.parallel.mesh import axis_size, is_writer, world_size
 from visreps_tpu_torch.parallel.shard import mesh_batch_size, rdm_sharded
 
 #: Wall-clock seconds of the last eval's phases: model_load_s,
@@ -317,7 +318,8 @@ def eval(cfg: Config, device: str | torch.device | None = None, mesh=None) -> Li
     LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
     rprint("  Activations extracted once for all subjects/regions", style="success")
     if analysis == "encoding_score":
-        return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
+        return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device,
+                              mesh)
     # Boxed, with this frame's name dropped, so that _eval_rsa's release
     # after phase 1 frees the store before phase 2's exact taps.
     acts_box = [acts]
@@ -675,7 +677,8 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device, mesh=None) 
     return all_results
 
 
-def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device) -> List[Dict]:
+def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device,
+                   mesh=None) -> List[Dict]:
     """Encoding score over every train row of the SRP store ``acts``.
 
     Batched per SUBJECT across regions and layers
@@ -684,7 +687,10 @@ def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
     the per-pair path runs when the regions' stimulus sets differ or
     ``encoding_batched=false``. Results are in subject-major order on the
     batched path and region-major on the per-pair one, as in the JAX
-    package, with one results.db row per (region, subject).
+    package, with one results.db row per (region, subject). On the
+    batched path a mesh whose 'data' axis has more than one rank
+    row-shards every design and target whose row count it divides, as the
+    JAX package's ``shard_rows``; the per-pair path takes no mesh.
     """
     t0 = time.perf_counter()
     neural = all_data["neural"]
@@ -711,7 +717,8 @@ def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device)
         per_subject = encoding.compute_encoding_scores_subjects(
             subject_inputs, bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
             reconstruct_pca_k=cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None,
-            cv_precision=cfg.get("encoding_cv_precision", "high"), device=device)
+            cv_precision=cfg.get("encoding_cv_precision", "high"), device=device,
+            mesh=mesh if axis_size(mesh) > 1 else None)
         LAST_PHASE_TIMES.update({f"encoding_{k}": v for k, v in encoding.LAST_PHASE_TIMES.items()})
         for subj in subjects:
             for region in regions:

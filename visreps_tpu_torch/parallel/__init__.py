@@ -5,7 +5,8 @@ and lets GSPMD insert the collectives. Torch's idiom is one process per
 GPU (``torchrun``; NCCL on CUDA, gloo on the CPU), so here the mesh is a
 ``DeviceMesh`` over the ranks of the process group and every sharded
 routine ends with each rank holding what the single-process run
-computes: the all-gathered RDM, extraction rows and bootstrap scores.
+computes: the all-gathered RDM, extraction rows and bootstrap scores, and
+the row-sharded encoding eval's results (``shard.RowBlocks``).
 Only rank 0 writes results.db, checkpoints and wandb (``is_writer``).
 """
 from visreps_tpu_torch.parallel.auto import default_mesh

@@ -17,8 +17,10 @@ serving ``compute_rdm``.
 ``extract_sharded_batch`` and ``shard_iterations`` split a batch's rows
 or a bootstrap's iterations over 'data', pad them to equal pieces, run
 each rank's piece and all-gather the results in global order with the
-padding removed. Every collective runs on the mesh's 'data' group (one
-ring per 'model' index).
+padding removed. ``RowBlocks`` is the encoding eval's row layout (the JAX
+package's ``P("data", None)`` designs and targets): sums, gathers by row
+index and broadcasts for the row-block ridge of ``ops/ridge.py``. Every
+collective runs on the mesh's 'data' group (one ring per 'model' index).
 """
 from __future__ import annotations
 
@@ -50,6 +52,84 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+class RowBlocks:
+    """Where the n rows of a row-sharded array lie over the mesh's 'data'
+    axis: row i on data rank ``owner[i]``, each rank holding its rows in
+    ascending order. Every rank builds the same map, so a gather by row
+    index needs no exchange of counts.
+
+    The encoding eval's ridge (``ops/ridge.py``) reads its inputs through
+    this: ``sum`` all-reduces a per-block partial (z-norm sums, Grams,
+    cross-products), ``take`` selects the rows of an index list (the
+    fit/val split), ``gather`` gives every rank the whole rows at some
+    positions (a CV fold, the test predictions) and ``share`` broadcasts
+    one rank's tensor, so that every rank continues from the same bits.
+    """
+
+    def __init__(self, owner: torch.Tensor, mesh: DeviceMesh):
+        self.mesh, self.group = mesh, mesh.get_group("data")
+        self.size, self.me = axis_size(mesh), mesh.get_local_rank("data")
+        self.owner = owner
+        self.n = owner.numel()
+        counts = torch.bincount(owner, minlength=self.size)
+        # slot[i]: row i's index in its owner's block
+        self.slot = torch.empty(self.n, dtype=torch.long)
+        for r in range(self.size):
+            self.slot[owner == r] = torch.arange(int(counts[r]))
+        self.count = int(counts[self.me])
+
+    @classmethod
+    def of(cls, n: int, mesh: DeviceMesh | None) -> "RowBlocks | None":
+        """Contiguous blocks of n / size rows, or None where the axis size
+        does not divide n: the JAX package's rule, under which such an
+        array stays whole on every rank (``visreps_tpu/evals.py``)."""
+        if mesh is None or n == 0 or n % axis_size(mesh):
+            return None
+        return cls(torch.arange(n) // (n // axis_size(mesh)), mesh)
+
+    def block(self) -> slice:
+        """This rank's rows of a contiguous layout (``of``)."""
+        per = self.n // self.size
+        return slice(self.me * per, (self.me + 1) * per)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the 'data' ranks of each rank's ``t`` (in place)."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def share(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Data rank ``src``'s ``t``, on every rank (in place)."""
+        dist.broadcast(t, src=dist.get_global_rank(self.group, src), group=self.group)
+        return t
+
+    def take(self, idx) -> tuple[torch.Tensor, "RowBlocks"]:
+        """The rows of the index list ``idx`` (global rows, the new order):
+        indices into this rank's block of the rows it holds, and their
+        layout (row j of the new array on ``owner[idx[j]]``)."""
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long)
+        sub = RowBlocks(self.owner[idx], self.mesh)
+        return self.slot[idx[sub.owner == self.me]], sub
+
+    def gather(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The rows at ``positions`` of the array whose block here is ``x``,
+        whole and in that order, on every rank: each rank sends its rows
+        of them, padded to the largest rank's count."""
+        own = self.owner[positions]
+        counts = torch.bincount(own, minlength=self.size).tolist()
+        send = x.new_zeros((max(counts), *x.shape[1:]))
+        send[:counts[self.me]] = x[self.slot[positions[own == self.me]].to(x.device)]
+        parts = [torch.empty_like(send) for _ in range(self.size)]
+        dist.all_gather(parts, send, group=self.group)
+        out = x.new_empty((len(positions), *x.shape[1:]))
+        for r, part in enumerate(parts):
+            out[(own == r).nonzero().flatten().to(x.device)] = part[:counts[r]]
+        return out
+
+    def cat(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole array whose block here is ``x``, on every rank."""
+        return self.gather(x, torch.arange(self.n))
 
 
 def rdm_sharded(x, mesh: DeviceMesh, correlation: str = "pearson",
