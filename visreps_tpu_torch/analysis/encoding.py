@@ -21,13 +21,13 @@ ridge sums, gathers and broadcasts over the 'data' ranks
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.bootstrap import percentile_ci
 from visreps_tpu_torch.ops.pca import PCATransform, fit_pca
@@ -42,10 +42,11 @@ from visreps_tpu_torch.ops.ridge import (
 from visreps_tpu_torch.ops.znorm import znorm, znorm_fit
 from visreps_tpu_torch.parallel.shard import RowBlocks
 
-#: Wall-clock seconds of the last compute_encoding_scores_subjects call:
-#: selection_s (selection sweep), refit_s (cross-subject refits),
-#: assemble_bootstrap_s (per-region scores and bootstraps). This process's
-#: own under a mesh.
+#: Wall-clock seconds of the last compute_encoding_scores_subjects call,
+#: each its span's: selection_s (selection sweep, ``encoding.selection``),
+#: refit_s (cross-subject refits, ``encoding.refit``),
+#: assemble_bootstrap_s (per-region scores and bootstraps,
+#: ``encoding.assemble_bootstrap``). This process's own under a mesh.
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
@@ -367,30 +368,31 @@ def compute_encoding_scores_subjects(subject_inputs: Dict, bootstrap: bool = Tru
     Returns {subject: {region: [result]}}.
     """
     LAST_PHASE_TIMES.clear()
-    t0 = time.perf_counter()
-    deferred = {}
-    for subj, (a_tr, a_te, y_tr, y_te) in subject_inputs.items():
-        rprint(f"\n  -- Subject: {subj} (all regions batched) --", style="info")
-        deferred[subj] = compute_encoding_scores_subject(
-            a_tr, a_te, y_tr, y_te, bootstrap=bootstrap, n_bootstrap=n_bootstrap, seed=seed,
-            verbose=verbose, reconstruct_pca_k=reconstruct_pca_k, cv_precision=cv_precision,
-            device=device, mesh=mesh, _defer=True)
-    LAST_PHASE_TIMES["selection_s"] = time.perf_counter() - t0
+    with span("encoding.selection") as step:
+        deferred = {}
+        for subj, (a_tr, a_te, y_tr, y_te) in subject_inputs.items():
+            rprint(f"\n  -- Subject: {subj} (all regions batched) --", style="info")
+            deferred[subj] = compute_encoding_scores_subject(
+                a_tr, a_te, y_tr, y_te, bootstrap=bootstrap, n_bootstrap=n_bootstrap, seed=seed,
+                verbose=verbose, reconstruct_pca_k=reconstruct_pca_k, cv_precision=cv_precision,
+                device=device, mesh=mesh, _defer=True)
+    LAST_PHASE_TIMES["selection_s"] = step.seconds
 
-    t0 = time.perf_counter()
-    all_jobs = [j for d in deferred.values() for j in d["jobs"]]
-    refits = ridge_cv_refit_predict_grouped(all_jobs, precision=cv_precision, device=device)
-    if all_jobs and all_jobs[0]["x_tr"].is_cuda:
-        torch.cuda.synchronize(all_jobs[0]["x_tr"].device)  # bill the queued refits here
-    LAST_PHASE_TIMES["refit_s"] = time.perf_counter() - t0
+    with span("encoding.refit") as step:
+        all_jobs = [j for d in deferred.values() for j in d["jobs"]]
+        refits = ridge_cv_refit_predict_grouped(all_jobs, precision=cv_precision, device=device)
+        if all_jobs and all_jobs[0]["x_tr"].is_cuda:
+            torch.cuda.synchronize(all_jobs[0]["x_tr"].device)  # bill the queued refits here
+    LAST_PHASE_TIMES["refit_s"] = step.seconds
 
-    t0 = time.perf_counter()
-    out = {}
-    k = 0
-    for subj, d in deferred.items():
-        n_jobs = len(d["jobs"])
-        out[subj] = _assemble_subject_results(d["jobs"], refits[k:k + n_jobs], d["selection"],
-                                              d["bootstrap"], d["boot_idx"], d["col_slices"])
-        k += n_jobs
-    LAST_PHASE_TIMES["assemble_bootstrap_s"] = time.perf_counter() - t0
+    with span("encoding.assemble_bootstrap") as step:
+        out = {}
+        k = 0
+        for subj, d in deferred.items():
+            n_jobs = len(d["jobs"])
+            out[subj] = _assemble_subject_results(d["jobs"], refits[k:k + n_jobs],
+                                                  d["selection"], d["bootstrap"],
+                                                  d["boot_idx"], d["col_slices"])
+            k += n_jobs
+    LAST_PHASE_TIMES["assemble_bootstrap_s"] = step.seconds
     return out

@@ -18,7 +18,6 @@ per-image activations per concept on the host.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from visreps_tpu_torch.analysis.alignment import take_rows
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.device import input_device
 from visreps_tpu_torch.ops.bootstrap import (
     bootstrap_indices,
@@ -41,10 +41,11 @@ from visreps_tpu_torch.ops.stats import (
     rankdata_dense,
 )
 
-#: Wall-clock seconds of the last compute_rsa call's steps: selection_s,
-#: re_extract_s (with a re-extraction) and point_score_s (with the
-#: bootstrap where it ran fused, and then fused = 1.0; else bootstrap_s
-#: follows).
+#: Wall-clock seconds of the last compute_rsa call's steps, each its
+#: span's: selection_s (``rsa.selection``), re_extract_s (with a
+#: re-extraction; ``rsa.exact``) and point_score_s (``rsa.point_score``;
+#: with the bootstrap where it ran fused, and then fused = 1.0; else
+#: bootstrap_s, ``rsa.bootstrap``, follows).
 LAST_RSA_TIMES: Dict[str, float] = {}
 
 
@@ -139,10 +140,10 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
 
     # ── 1. Layer selection ──
     LAST_RSA_TIMES.clear()
-    t = time.perf_counter()
-    scores = select_best_layer(selection.activations, selection.neural, method,
-                               bool(cfg.get("selection_exact_ties", False)), sel_idx)
-    LAST_RSA_TIMES["selection_s"] = time.perf_counter() - t
+    with span("rsa.selection") as step:
+        scores = select_best_layer(selection.activations, selection.neural, method,
+                                   bool(cfg.get("selection_exact_ties", False)), sel_idx)
+    LAST_RSA_TIMES["selection_s"] = step.seconds
     selection_scores = [{"layer": l, "score": s} for l, s in scores.items()]
     best_layer = max(scores, key=lambda l: scores[l] if scores[l] == scores[l] else -np.inf)
     if verbose:
@@ -151,38 +152,39 @@ def compute_rsa(cfg, selection, evaluation, n_select: int | None = None,
         rprint(f"  Best layer: {best_layer} (score={scores[best_layer]:.4f})", style="highlight")
 
     # ── 2. Test activations (optionally re-extracted at full resolution) ──
-    t = time.perf_counter()
     if re_extract_fn is not None:
-        rprint(f"  Re-extracting {best_layer} without SRP for exact test RDMs...", style="info")
-        test_acts, _ = re_extract_fn(best_layer, evaluation.stimulus_ids)
-        LAST_RSA_TIMES["re_extract_s"] = time.perf_counter() - t
-        t = time.perf_counter()
+        with span("rsa.exact") as step:
+            rprint(f"  Re-extracting {best_layer} without SRP for exact test RDMs...",
+                   style="info")
+            test_acts, _ = re_extract_fn(best_layer, evaluation.stimulus_ids)
+        LAST_RSA_TIMES["re_extract_s"] = step.seconds
     else:
         test_acts = evaluation.activations[best_layer]
-    device = input_device(test_acts, device)
-    test_acts = torch.as_tensor(test_acts).to(device)
-    test_acts = test_acts.reshape(test_acts.shape[0], -1)
 
     ci_low = ci_high = boot = None
     boot_exact = False
-    if fused:
-        boot, point = single_pair_scoring(test_acts, evaluation.neural,
-                                          bootstrap_indices(n_test, n_bootstrap, seed=rng),
-                                          device=device, mesh=mesh)
-        boot_exact = True
-        LAST_RSA_TIMES["fused"] = 1.0
-        LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
-    else:
-        neural_rdm = compute_rdm(torch.as_tensor(evaluation.neural).to(device, torch.float32))
-        model_rdm = compute_rdm(test_acts)
-        point = compute_rdm_correlation(model_rdm, neural_rdm, correlation=method)
-        LAST_RSA_TIMES["point_score_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        if bootstrap:
-            boot = bootstrap_rdm_correlation(
-                model_rdm, neural_rdm, method=method,
-                indices=bootstrap_indices(n_test, n_bootstrap, seed=rng), mesh=mesh)
-        LAST_RSA_TIMES["bootstrap_s"] = time.perf_counter() - t
+    with span("rsa.point_score") as step:
+        device = input_device(test_acts, device)
+        test_acts = torch.as_tensor(test_acts).to(device)
+        test_acts = test_acts.reshape(test_acts.shape[0], -1)
+        if fused:
+            boot, point = single_pair_scoring(test_acts, evaluation.neural,
+                                              bootstrap_indices(n_test, n_bootstrap, seed=rng),
+                                              device=device, mesh=mesh)
+            boot_exact = True
+            LAST_RSA_TIMES["fused"] = 1.0
+        else:
+            neural_rdm = compute_rdm(torch.as_tensor(evaluation.neural).to(device, torch.float32))
+            model_rdm = compute_rdm(test_acts)
+            point = compute_rdm_correlation(model_rdm, neural_rdm, correlation=method)
+    LAST_RSA_TIMES["point_score_s"] = step.seconds
+    if not fused:
+        with span("rsa.bootstrap") as step:
+            if bootstrap:
+                boot = bootstrap_rdm_correlation(
+                    model_rdm, neural_rdm, method=method,
+                    indices=bootstrap_indices(n_test, n_bootstrap, seed=rng), mesh=mesh)
+        LAST_RSA_TIMES["bootstrap_s"] = step.seconds
 
     msg = f"  {method.capitalize():<10}| {best_layer} = {point:.4f}"
     if boot is not None:

@@ -1,11 +1,11 @@
-"""Console printing, the training-metrics CSV with an optional wandb
-sink, and a phase timer (copy of ``visreps_tpu/core/logging.py``)."""
+"""Console printing and the training-metrics CSV with an optional wandb
+sink (copy of ``visreps_tpu/core/logging.py``, without its phase timer:
+the port's phases are ``core.profiling`` spans)."""
 from __future__ import annotations
 
 import csv
 import os
 import sys
-import time
 
 _STYLES = {
     "info": "\033[1;37m",
@@ -112,17 +112,3 @@ class MetricsLogger:
                 self._wandb.finish()
             except Exception as e:
                 rprint(f"W&B finish failed: {e}", style="warning")
-
-
-class Timer:
-    """Wall-clock phase timer: ``mark(name)`` returns the seconds since
-    the previous mark (or construction)."""
-
-    def __init__(self):
-        self._start = time.perf_counter()
-
-    def mark(self, name: str) -> float:
-        now = time.perf_counter()
-        elapsed = now - self._start
-        self._start = now
-        return elapsed

@@ -1,19 +1,44 @@
-"""Tracing and phase timing (port of ``visreps_tpu/core/profiling.py``).
+"""Spans, tracing and phase timing (port of ``visreps_tpu/core/profiling.py``,
+with spans added).
 
+  * ``span(name, items=0, **counts)`` — a context manager around one
+    region of the program's work; spans nest, each under the span open
+    around it. ``evals.eval`` opens the root, ``eval_span()``, which
+    starts new per-name totals (``totals()``, a ``PhaseTimer``) under a
+    new eval id. A span adds its host seconds and items to those totals
+    and yields a ``Span`` whose ``seconds`` hold its own duration after
+    the block. While a ``torch.profiler`` is active, every span but the
+    root (in a trace it would name every idle gap) also enters
+    ``record_function(name)``, so the trace shows it. With neither a
+    profiler nor recording, a span is two clock reads and a dict update.
+  * ``recording()`` — while it is open, every span also appends a record
+    (``id``, ``parent``, ``eval``, ``name``, ``start_ns`` / ``end_ns`` by
+    ``time.perf_counter_ns``, ``items``, ``counts``) and, where CUDA is
+    initialised, records a pair of timing events on the current stream.
+    ``take_spans()`` returns the
+    closed records since the last take, each with ``device_s``: the
+    stream's seconds from the span's start event to its end event (the
+    device time of the span's work while the host keeps the stream fed;
+    idle time included where it does not), or on the CPU the host
+    duration. Events are read only there, never while the spans run.
   * ``trace(log_dir)`` — context manager around ``torch.profiler``
-    (CPU activity, and CUDA where a card is present) that writes one
-    Chrome trace JSON into ``log_dir`` on exit; it yields that file's
-    path. Open it in Perfetto (ui.perfetto.dev) or chrome://tracing, or
-    read it with ``summarize_trace``.
+    (CPU activity, and CUDA where a card is present) that writes one Chrome trace JSON into ``log_dir`` on exit; it
+    yields that file's path. Open it in Perfetto (ui.perfetto.dev) or
+    chrome://tracing, where the spans are ``user_annotation`` events on
+    the kernels' clock, or read it with ``summarize_trace``.
   * ``summarize_trace(path)`` — the device's busy share over the traced
     window (the union of kernel, memcpy and memset intervals), the
     device operations that took the most time, and the longest idle gaps
-    with the host operation that ran across each.
-  * ``PhaseTimer`` — per-phase wall-clock and item-throughput counters,
-    printed as the JAX package's summary table.
+    with the host operation or span that ran across each.
+  * ``PhaseTimer`` — per-phase wall-clock and item-throughput totals (an
+    eval's spans, or phases timed with ``phase``), printed as the JAX
+    package's summary table.
+
+Spans are opened by the thread that runs the eval.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -21,12 +46,16 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
+import torch
+
 from visreps_tpu_torch.core.logging import rprint
 
 #: Trace event categories of work on the device (kineto's names).
 DEVICE_CATEGORIES = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
 #: Trace event categories of host-side operations.
 HOST_CATEGORIES = frozenset({"cpu_op", "user_annotation"})
+#: Records kept between takes; the oldest are dropped beyond it.
+MAX_RECORDS = 1 << 16
 
 
 @contextlib.contextmanager
@@ -128,15 +157,20 @@ class PhaseTimer:
 
     phases: dict = field(default_factory=dict)
 
+    def add(self, name: str, seconds: float, items: int = 0) -> None:
+        secs, count = self.phases.get(name, (0.0, 0))
+        self.phases[name] = (secs + seconds, count + items)
+
+    def seconds(self, name: str) -> float:
+        return self.phases.get(name, (0.0, 0))[0]
+
     @contextlib.contextmanager
     def phase(self, name: str, items: int = 0):
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            secs, count = self.phases.get(name, (0.0, 0))
-            self.phases[name] = (secs + dt, count + items)
+            self.add(name, time.perf_counter() - t0, items)
 
     def summary(self) -> str:
         lines = [f"{'phase':<28}{'seconds':>10}{'items':>10}{'items/s':>12}"]
@@ -150,3 +184,123 @@ class PhaseTimer:
 
     def report(self):
         rprint(self.summary(), style="info")
+
+
+# ── spans ──
+@dataclass
+class Span:
+    """One span as the code inside it sees it: ``items`` and ``counts`` may
+    be added to inside the block; ``seconds`` (host) is set when it ends."""
+
+    name: str
+    items: int = 0
+    counts: dict = field(default_factory=dict)
+    seconds: float = 0.0
+
+
+class _Recorder:
+    """The process's spans: the current eval's totals and id, and while
+    recording the open records (innermost last) and those not yet taken."""
+
+    def __init__(self):
+        self.totals = PhaseTimer()
+        self.eval_id = 0
+        self.evals: list[int] = []
+        self.depth = 0
+        self.next_id = 0
+        self.open: list[dict] = []
+        self.records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+
+
+_REC = _Recorder()
+
+
+@contextlib.contextmanager
+def _span(name: str, items: int, counts: dict, annotate: bool):
+    s = Span(name, items, counts)
+    ann = (torch.profiler.record_function(name)
+           if annotate and torch._C._autograd._profiler_enabled() else contextlib.nullcontext())
+    rec = events = None
+    if _REC.depth:
+        rec = {"id": _REC.next_id, "parent": _REC.open[-1]["id"] if _REC.open else None,
+               "eval": _REC.evals[-1] if _REC.evals else None, "name": name,
+               "start_ns": None, "end_ns": None, "items": items, "counts": counts}
+        _REC.next_id += 1
+        if torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            rec["_events"] = events
+        _REC.open.append(rec)
+        _REC.records.append(rec)
+    with ann:
+        if events:
+            events[0].record()
+        t0 = time.perf_counter_ns()
+        try:
+            yield s
+        finally:
+            if events:
+                events[1].record()
+            t1 = time.perf_counter_ns()
+            s.seconds = (t1 - t0) / 1e9
+            _REC.totals.add(name, s.seconds, s.items)
+            if rec is not None:
+                _REC.open.pop()
+                rec.update(start_ns=t0, end_ns=t1, items=s.items)
+
+
+def span(name: str, items: int = 0, **counts):
+    """A span of the program's work named ``name``, under the span open
+    around it; yields its ``Span``. ``items`` (stimuli, rows) go into the
+    totals and the record, ``counts`` (bytes) into the record."""
+    return _span(name, items, counts, True)
+
+
+@contextlib.contextmanager
+def eval_span():
+    """The root span ``eval`` of one eval: new totals and a new eval id,
+    which every span recorded inside it carries. It enters no
+    ``record_function``."""
+    _REC.eval_id += 1
+    _REC.evals.append(_REC.eval_id)
+    _REC.totals = PhaseTimer()
+    try:
+        with _span("eval", 0, {}, False) as s:
+            yield s
+    finally:
+        _REC.evals.pop()
+
+
+def totals() -> PhaseTimer:
+    """The current (or last) eval's seconds and items per span name."""
+    return _REC.totals
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span opened inside the block (nestable). Records not
+    taken (``take_spans``) when the outermost block ends are dropped."""
+    _REC.depth += 1
+    try:
+        yield
+    finally:
+        _REC.depth -= 1
+        if not _REC.depth:
+            _REC.records.clear()
+
+
+def take_spans() -> list[dict]:
+    """The records of the spans closed since the last take, in the order
+    they opened, each with ``device_s``; the records of open spans stay
+    for a later take. Waits for each CUDA span's end event."""
+    done = [r for r in _REC.records if r["end_ns"] is not None]
+    still_open = [r for r in _REC.records if r["end_ns"] is None]
+    _REC.records.clear()
+    _REC.records.extend(still_open)
+    for r in done:
+        events = r.pop("_events", None)
+        if events is None:
+            r["device_s"] = (r["end_ns"] - r["start_ns"]) / 1e9
+        else:
+            events[1].synchronize()
+            r["device_s"] = events[0].elapsed_time(events[1]) / 1e3
+    return done

@@ -47,8 +47,7 @@ from __future__ import annotations
 
 import json
 import sqlite3
-import time
-from contextlib import closing
+from contextlib import closing, contextmanager
 from pathlib import Path
 from typing import Dict, List
 
@@ -72,7 +71,8 @@ from visreps_tpu_torch.analysis.rsa import (
 from visreps_tpu_torch.core import db
 from visreps_tpu_torch.core.config import Config, get_seed_letter
 from visreps_tpu_torch.core.db import compute_run_id, save_results
-from visreps_tpu_torch.core.logging import Timer, rprint
+from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import eval_span, span, totals
 from visreps_tpu_torch.data.loader import make_stimuli_loader
 from visreps_tpu_torch.data.neural import (
     get_neural_loader,
@@ -96,16 +96,23 @@ from visreps_tpu_torch.parallel.auto import default_mesh
 from visreps_tpu_torch.parallel.mesh import axis_size, is_writer, world_size
 from visreps_tpu_torch.parallel.shard import mesh_batch_size, rdm_sharded
 
-#: Wall-clock seconds of the last eval's phases: model_load_s,
-#: data_load_s, extraction_s (of which extraction_loader_s waited on the
-#: host loader), then for RSA phase1_selection_s, phase2_extract_s,
-#: scoring_bootstrap_s, and for encoding encoding_s (the whole analysis)
-#: with the encoding module's phases as encoding_{selection,refit,
-#: assemble_bootstrap}_s on the subject-batched path. THINGS has
-#: concept_avg_s and scoring_s, with compute_rsa's steps as scoring_*
+#: Wall-clock seconds of the last eval's phases, each its span's
+#: (``core.profiling.span``): model_load_s (``model_load``), data_load_s
+#: (``data_load``), extraction_s (``extraction``; extraction_loader_s is
+#: the ``loader_wait`` inside it), then for RSA phase1_selection_s,
+#: phase2_extract_s, scoring_bootstrap_s (``rsa.selection``, ``rsa.exact``,
+#: ``rsa.scoring``), and for encoding encoding_s (``encoding``, the whole
+#: analysis) with the encoding module's phases as encoding_{selection,
+#: refit,assemble_bootstrap}_s on the subject-batched path. THINGS has
+#: concept_avg_s and scoring_s (``things.concept_avg``,
+#: ``things.scoring``), with compute_rsa's steps as scoring_*
 #: (rsa.LAST_RSA_TIMES); NSD-Synthetic has data_load_s, model_load_s,
-#: phase2_extract_s and scoring_bootstrap_s. Phases end with a device
-#: synchronise. Rewritten by every eval() call.
+#: phase2_extract_s and scoring_bootstrap_s. model_load_s,
+#: phase2_extract_s, concept_avg_s and THINGS' scoring_s end with a device
+#: synchronise, extraction_s with the device store's (a host store's rows
+#: are copied back batch by batch); the other phases end on host reads of
+#: the card's results, and data_load_s is host work. Rewritten by every
+#: eval() call.
 LAST_PHASE_TIMES: Dict[str, float] = {}
 
 
@@ -126,9 +133,40 @@ def _listify(val) -> list:
 
 
 def _sync(device: torch.device) -> None:
-    """Wait for the card, so that a phase's time includes its launches."""
-    if device.type == "cuda":
+    """Wait for the card, so that a phase's time includes its launches
+    (nothing to wait for where this process has not touched it)."""
+    if device.type == "cuda" and torch.cuda.is_initialized():
         torch.cuda.synchronize(device)
+
+
+@contextmanager
+def _phase(name: str, key: str, items: int = 0):
+    """``span(name)``, whose seconds become ``LAST_PHASE_TIMES[key]``."""
+    with span(name, items) as s:
+        yield s
+    LAST_PHASE_TIMES[key] = s.seconds
+
+
+def _load_extractor(cfg, verbose, device, mesh):
+    """The model and its extractor (``model_load``; ended by a device
+    synchronise, so its copies and probe forward are billed to it)."""
+    with _phase("model_load", "model_load_s"):
+        model = load_model(cfg, device=device)
+        extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
+        extractor.mesh = mesh
+        _sync(device)
+    return extractor
+
+
+def _extract(extractor, loader, **kwargs):
+    """``extractor.get_activations(loader, **kwargs)``, its SRP matrices
+    freed after, with the ``loader_wait`` inside it as
+    extraction_loader_s; run inside the ``extraction`` span."""
+    wait = totals().seconds("loader_wait")
+    out = extractor.get_activations(loader, **kwargs)
+    extractor.free_projection_cache()
+    LAST_PHASE_TIMES["extraction_loader_s"] = totals().seconds("loader_wait") - wait
+    return out
 
 
 def _build_header(cfg) -> str:
@@ -263,8 +301,14 @@ def eval(cfg: Config, device: str | torch.device | None = None, mesh=None) -> Li
     if mesh is None:
         mesh = default_mesh(cfg)
     _check_slice(cfg)
-    verbose = cfg.get("verbose", False)
     LAST_PHASE_TIMES.clear()
+    with eval_span():
+        return _eval(cfg, device, mesh)
+
+
+def _eval(cfg: Config, device: torch.device, mesh) -> List[Dict]:
+    """``eval``'s body, inside its root span."""
+    verbose = cfg.get("verbose", False)
 
     if cfg.get("load_model_from") == "checkpoint":
         cfg = _load_cfg(cfg)
@@ -287,35 +331,28 @@ def eval(cfg: Config, device: str | torch.device | None = None, mesh=None) -> Li
            f"{dataset.upper()} | {len(subjects)} subjects x {len(regions)} regions | "
            f"seed {cfg.seed} | {device}\n", style="info")
 
-    timer = Timer()
-    model = load_model(cfg, device=device)
-    extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
-    extractor.mesh = mesh
-    LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
+    extractor = _load_extractor(cfg, verbose, device, mesh)
 
     load_all = load_all_nsd_data if dataset == "nsd" else load_all_tvsd_data
-    all_data = load_all(cfg, subjects=subjects, regions=regions)
-    LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
+    with _phase("data_load", "data_load_s"):
+        all_data = load_all(cfg, subjects=subjects, regions=regions)
     stimuli = all_data["stimuli"]
-    rprint(f"  {len(subjects)} subjects x {len(regions)} regions, {len(stimuli)} stimuli, "
-           f"{len(all_data['shared_test_ids'])} shared test IDs", style="success")
-
-    transform = get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False))
-    dl = make_stimuli_loader(stimuli, transform, mesh_batch_size(cfg.batchsize, mesh),
-                             cfg.get("num_workers", 16))
-    # RSA's phase 1 reads only the plan's rows, so the plan comes first and
-    # extraction may keep just those; encoding needs every train row.
-    plan = union = None
-    if analysis == "rsa":
-        plan = _selection_plan(all_data["neural"], subjects, regions, stimuli,
-                               cfg.get("n_select", 1000))
-        union = set().union(*plan.values())
-    retain, store = store_plan(cfg, device.type, len(stimuli),
-                               sum(extractor.out_dims().values()), union)
-    acts, ids = extractor.get_activations(dl, store=store, retain_ids=retain)
-    extractor.free_projection_cache()
-    LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
-    LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
+    with _phase("extraction", "extraction_s", len(stimuli)):
+        rprint(f"  {len(subjects)} subjects x {len(regions)} regions, {len(stimuli)} stimuli, "
+               f"{len(all_data['shared_test_ids'])} shared test IDs", style="success")
+        transform = get_transform("imgnet", normalize=not cfg.get("uint8_transfer", False))
+        dl = make_stimuli_loader(stimuli, transform, mesh_batch_size(cfg.batchsize, mesh),
+                                 cfg.get("num_workers", 16))
+        # RSA's phase 1 reads only the plan's rows, so the plan comes first
+        # and extraction may keep just those; encoding needs every train row.
+        plan = union = None
+        if analysis == "rsa":
+            plan = _selection_plan(all_data["neural"], subjects, regions, stimuli,
+                                   cfg.get("n_select", 1000))
+            union = set().union(*plan.values())
+        retain, store = store_plan(cfg, device.type, len(stimuli),
+                                   sum(extractor.out_dims().values()), union)
+        acts, ids = _extract(extractor, dl, store=store, retain_ids=retain)
     rprint("  Activations extracted once for all subjects/regions", style="success")
     if analysis == "encoding_score":
         return _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device,
@@ -331,27 +368,22 @@ def eval(cfg: Config, device: str | torch.device | None = None, mesh=None) -> Li
 def _eval_things(cfg, verbose, device, mesh=None) -> List[Dict]:
     """Concept-level RSA against the THINGS behavioural embeddings: one
     result (region and subject "N/A")."""
-    timer = Timer()
     rprint(f"\n  {_build_header(cfg)} | {device}\n", style="info")
-    model = load_model(cfg, device=device)
-    extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
-    extractor.mesh = mesh
-    LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
+    extractor = _load_extractor(cfg, verbose, device, mesh)
 
-    neural_data, dl = get_neural_loader(cfg if mesh is None else cfg.merge(
-        {"batchsize": mesh_batch_size(cfg.batchsize, mesh)}))
-    rprint("  THINGS data loaded", style="success")
-    LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
+    with _phase("data_load", "data_load_s"):
+        neural_data, dl = get_neural_loader(cfg if mesh is None else cfg.merge(
+            {"batchsize": mesh_batch_size(cfg.batchsize, mesh)}))
+        rprint("  THINGS data loaded", style="success")
 
-    _, store = store_plan(cfg, device.type, len(dl.dataset), sum(extractor.out_dims().values()))
-    acts, ids = extractor.get_activations(dl, store=store)
-    extractor.free_projection_cache()
-    LAST_PHASE_TIMES["extraction_s"] = timer.mark("extraction")
-    LAST_PHASE_TIMES["extraction_loader_s"] = extractor.last_extract_times["loader_s"]
-    all_concepts = prepare_concept_alignment(cfg, acts, neural_data, ids)
-    del acts, neural_data
-    _sync(device)
-    LAST_PHASE_TIMES["concept_avg_s"] = timer.mark("concept_avg")
+    with _phase("extraction", "extraction_s", len(dl.dataset)):
+        _, store = store_plan(cfg, device.type, len(dl.dataset),
+                              sum(extractor.out_dims().values()))
+        acts, ids = _extract(extractor, dl, store=store)
+    with _phase("things.concept_avg", "concept_avg_s"):
+        all_concepts = prepare_concept_alignment(cfg, acts, neural_data, ids)
+        del acts, neural_data
+        _sync(device)
 
     n_concepts = all_concepts.neural.shape[0]
     perm = np.random.RandomState(42).permutation(n_concepts)
@@ -389,10 +421,10 @@ def _eval_things(cfg, verbose, device, mesh=None) -> List[Dict]:
             rprint(f"    Reconstructed from {pca_k} PCs", style="info")
         return concept_average_exact(raw, raw_ids, evaluation), evaluation.stimulus_ids
 
-    scores = compute_traintest_alignment(cfg, selection, evaluation, verbose=verbose,
-                                         re_extract_fn=re_extract, device=device, mesh=mesh)
-    _sync(device)
-    LAST_PHASE_TIMES["scoring_s"] = timer.mark("scoring")
+    with _phase("things.scoring", "scoring_s"):
+        scores = compute_traintest_alignment(cfg, selection, evaluation, verbose=verbose,
+                                             re_extract_fn=re_extract, device=device, mesh=mesh)
+        _sync(device)
     LAST_PHASE_TIMES.update({f"scoring_{k}": v for k, v in rsa.LAST_RSA_TIMES.items()})
     _save(scores, cfg)
     return scores
@@ -507,67 +539,66 @@ def _eval_rsa(cfg, extractor, acts_box, ids, all_data, subjects, regions, verbos
                            f"extraction output (e.g. {missing[:3]})")
 
     # ── Phase 1: per-(region, subject) layer selection (SRP) ──
-    t0 = time.perf_counter()
-    rprint("\n  Phase 1: Per-subject layer selection", style="info")
-    best: Dict = {r: {} for r in regions}
-    sel_scores: Dict = {r: {} for r in regions}
+    with _phase("rsa.selection", "phase1_selection_s"):
+        rprint("\n  Phase 1: Per-subject layer selection", style="info")
+        best: Dict = {r: {} for r in regions}
+        sel_scores: Dict = {r: {} for r in regions}
 
-    def record(region, subj, scores, n_used):
-        layer = max(scores, key=lambda l: scores[l] if scores[l] == scores[l] else -np.inf)
-        best[region][subj] = layer
-        sel_scores[region][subj] = [{"layer": l, "score": s} for l, s in scores.items()]
-        if verbose:
-            rprint(f"    {region} subj {subj}: {layer} ({scores[layer]:.4f}), "
-                   f"{n_used} stimuli for selection", style="info")
+        def record(region, subj, scores, n_used):
+            layer = max(scores, key=lambda l: scores[l] if scores[l] == scores[l] else -np.inf)
+            best[region][subj] = layer
+            sel_scores[region][subj] = [{"layer": l, "score": s} for l, s in scores.items()]
+            if verbose:
+                rprint(f"    {region} subj {subj}: {layer} ({scores[layer]:.4f}), "
+                       f"{n_used} stimuli for selection", style="info")
 
-    def take(rows) -> dict:
-        ix = torch.as_tensor(rows)
-        return {l: acts[l][ix.to(acts[l].device)].to(device) for l in tap_names}
+        def take(rows) -> dict:
+            ix = torch.as_tensor(rows)
+            return {l: acts[l][ix.to(acts[l].device)].to(device) for l in tap_names}
 
-    for subj in subjects:
-        rows = {r: [id_pos[k] for k in plan[(r, subj)]] for r in regions}
-        targets = {r: _neural_tensor(neural[r][subj]["train"], plan[(r, subj)]) for r in regions}
-        if all(rows[r] == rows[regions[0]] for r in regions):
-            # One set of L model RDMs scored against all R neural RDMs.
-            neural_rdms = torch.stack([
-                compute_rdm(torch.as_tensor(targets[r], device=device)) for r in regions])
-            vals = select_scores_multipair(list(take(rows[regions[0]]).values()),
-                                           neural_rdms, method, exact_sel).cpu()
-            for region, row in zip(regions, vals.tolist()):
-                record(region, subj, dict(zip(tap_names, row)), len(rows[region]))
-        else:
-            for region in regions:
-                record(region, subj, select_best_layer(take(rows[region]), targets[region],
-                                                       method, exact_sel), len(rows[region]))
-    del acts
-    LAST_PHASE_TIMES["phase1_selection_s"] = time.perf_counter() - t0
+        for subj in subjects:
+            rows = {r: [id_pos[k] for k in plan[(r, subj)]] for r in regions}
+            targets = {r: _neural_tensor(neural[r][subj]["train"], plan[(r, subj)])
+                       for r in regions}
+            if all(rows[r] == rows[regions[0]] for r in regions):
+                # One set of L model RDMs scored against all R neural RDMs.
+                neural_rdms = torch.stack([
+                    compute_rdm(torch.as_tensor(targets[r], device=device)) for r in regions])
+                vals = select_scores_multipair(list(take(rows[regions[0]]).values()),
+                                               neural_rdms, method, exact_sel).cpu()
+                for region, row in zip(regions, vals.tolist()):
+                    record(region, subj, dict(zip(tap_names, row)), len(rows[region]))
+            else:
+                for region in regions:
+                    scores = select_best_layer(take(rows[region]), targets[region], method,
+                                               exact_sel)
+                    record(region, subj, scores, len(rows[region]))
+        del acts
     rprint("  Freed bulk SRP activations", style="success")
 
     # ── Phase 2: exact taps of the selected layers on the shared test set ──
-    t0 = time.perf_counter()
-    rprint("\n  Phase 2: Test evaluation", style="info")
-    unique_layers = sorted({l for rl in best.values() for l in rl.values()})
-    test_stimuli = {sid: stimuli[sid] for sid in shared_test_ids if sid in stimuli}
-    dl_test = make_stimuli_loader(test_stimuli, get_transform("imgnet"),
-                                  mesh_batch_size(min(int(cfg.batchsize), 256), mesh),
-                                  cfg.get("num_workers", 16))
-    rprint(f"  Re-extracting {len(unique_layers)} unique layers over "
-           f"{len(test_stimuli)} test stimuli...", style="info")
-    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, shared_test_ids, mesh)
-    _sync(device)  # bill the queued RDM launches to phase 2
-    LAST_PHASE_TIMES["phase2_extract_s"] = time.perf_counter() - t0
+    with _phase("rsa.exact", "phase2_extract_s"):
+        rprint("\n  Phase 2: Test evaluation", style="info")
+        unique_layers = sorted({l for rl in best.values() for l in rl.values()})
+        test_stimuli = {sid: stimuli[sid] for sid in shared_test_ids if sid in stimuli}
+        dl_test = make_stimuli_loader(test_stimuli, get_transform("imgnet"),
+                                      mesh_batch_size(min(int(cfg.batchsize), 256), mesh),
+                                      cfg.get("num_workers", 16))
+        rprint(f"  Re-extracting {len(unique_layers)} unique layers over "
+               f"{len(test_stimuli)} test stimuli...", style="info")
+        model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, shared_test_ids, mesh)
+        _sync(device)  # bill the queued RDM launches to phase 2
 
     # ── Scoring: point scores + bootstraps for every pair ──
-    t0 = time.perf_counter()
-    pair_list = [(r, s) for r in regions for s in subjects]
-    neural_mats = {(r, s): _neural_tensor(neural[r][s]["test"], shared_test_ids)
-                   for r, s in pair_list}
-    boot_by_pair, point_of_pair = _score_pairs(
-        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
-        len(shared_test_ids), mesh)
-    del neural_mats
-    all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, sel_scores)
-    LAST_PHASE_TIMES["scoring_bootstrap_s"] = time.perf_counter() - t0
+    with _phase("rsa.scoring", "scoring_bootstrap_s"):
+        pair_list = [(r, s) for r in regions for s in subjects]
+        neural_mats = {(r, s): _neural_tensor(neural[r][s]["test"], shared_test_ids)
+                       for r, s in pair_list}
+        boot_by_pair, point_of_pair = _score_pairs(
+            cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
+            len(shared_test_ids), mesh)
+        del neural_mats
+        all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, sel_scores)
     return all_results
 
 
@@ -645,35 +676,32 @@ def _eval_rsa_nsd_synthetic(cfg, subjects, regions, verbose, device, mesh=None) 
     rprint(f"\n  RSA eval (NSD Synthetic) | cfg{cfg.get('cfg_id', '?')}{seed_letter} "
            f"epoch {cfg.get('epoch', '?')} | {len(subjects)} subjects x {len(regions)} regions | "
            f"seed {cfg.seed} | {device}\n", style="info")
-    timer = Timer()
-    best = _lookup_nsd_best_layers(cfg, subjects, regions)
-    test_data = load_nsd_synthetic_test_data(cfg, subjects=subjects, regions=regions)
-    test_ids = test_data["test_ids"]
-    rprint(f"  Loaded {len(test_ids)} synthetic test stimuli", style="success")
-    LAST_PHASE_TIMES["data_load_s"] = timer.mark("data_load")
+    with _phase("data_load", "data_load_s"):
+        best = _lookup_nsd_best_layers(cfg, subjects, regions)
+        test_data = load_nsd_synthetic_test_data(cfg, subjects=subjects, regions=regions)
+        test_ids = test_data["test_ids"]
+        rprint(f"  Loaded {len(test_ids)} synthetic test stimuli", style="success")
 
-    model = load_model(cfg, device=device)
-    extractor = configure_feature_extractor(cfg, model, device=device, verbose=verbose)
-    extractor.mesh = mesh
-    LAST_PHASE_TIMES["model_load_s"] = timer.mark("model_load")
+    extractor = _load_extractor(cfg, verbose, device, mesh)
 
-    unique_layers = sorted({l for rl in best.values() for l in rl.values()})
-    rprint(f"  Extracting {len(unique_layers)} unique layers...", style="info")
-    dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"),
-                                  mesh_batch_size(cfg.batchsize, mesh), cfg.get("num_workers", 16))
-    model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, test_ids, mesh)
-    _sync(device)
-    LAST_PHASE_TIMES["phase2_extract_s"] = timer.mark("phase2_extract")
+    with _phase("rsa.exact", "phase2_extract_s"):
+        unique_layers = sorted({l for rl in best.values() for l in rl.values()})
+        rprint(f"  Extracting {len(unique_layers)} unique layers...", style="info")
+        dl_test = make_stimuli_loader(test_data["stimuli"], get_transform("imgnet"),
+                                      mesh_batch_size(cfg.batchsize, mesh),
+                                      cfg.get("num_workers", 16))
+        model_rdms = _exact_rdms(cfg, extractor, dl_test, unique_layers, test_ids, mesh)
+        _sync(device)
 
-    pair_list = [(r, s) for r in regions for s in subjects]
-    neural_mats = {(r, s): _neural_tensor(test_data["neural"][r][s], test_ids)
-                   for r, s in pair_list}
-    boot_by_pair, point_of_pair = _score_pairs(
-        cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list}, len(test_ids),
-        mesh)
-    del neural_mats
-    all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, None)
-    LAST_PHASE_TIMES["scoring_bootstrap_s"] = timer.mark("scoring")
+    with _phase("rsa.scoring", "scoring_bootstrap_s"):
+        pair_list = [(r, s) for r in regions for s in subjects]
+        neural_mats = {(r, s): _neural_tensor(test_data["neural"][r][s], test_ids)
+                       for r, s in pair_list}
+        boot_by_pair, point_of_pair = _score_pairs(
+            cfg, model_rdms, neural_mats, {(r, s): best[r][s] for r, s in pair_list},
+            len(test_ids), mesh)
+        del neural_mats
+        all_results = _report(cfg, pair_list, best, point_of_pair, boot_by_pair, None)
     return all_results
 
 
@@ -692,46 +720,46 @@ def _eval_encoding(cfg, acts, ids, all_data, subjects, regions, verbose, device,
     row-shards every design and target whose row count it divides, as the
     JAX package's ``shard_rows``; the per-pair path takes no mesh.
     """
-    t0 = time.perf_counter()
-    neural = all_data["neural"]
-    all_results = []
-    bootstrap = cfg.get("bootstrap", True)
-    n_bootstrap = cfg.get("n_bootstrap", 1000)
+    with _phase("encoding", "encoding_s"):
+        neural = all_data["neural"]
+        all_results = []
+        bootstrap = cfg.get("bootstrap", True)
+        n_bootstrap = cfg.get("n_bootstrap", 1000)
 
-    def save(scores, region, subj):
-        _save(scores, cfg.merge({"subject_idx": subj, "region": region}))
-        all_results.extend(scores)
+        def save(scores, region, subj):
+            _save(scores, cfg.merge({"subject_idx": subj, "region": region}))
+            all_results.extend(scores)
 
-    batched = cfg.get("encoding_batched", True) and all(
-        frozenset(neural[r][subj][split]) == frozenset(neural[regions[0]][subj][split])
-        for subj in subjects for split in ("train", "test") for r in regions)
-    if batched:
-        subject_inputs = {}
-        for subj in subjects:
-            first = neural[regions[0]][subj]
-            train_acts, _, train_ids = align_stimulus_level(acts, first["train"], ids)
-            test_acts, _, test_ids = align_stimulus_level(acts, first["test"], ids)
-            y_train = {r: _neural_tensor(neural[r][subj]["train"], train_ids) for r in regions}
-            y_test = {r: _neural_tensor(neural[r][subj]["test"], test_ids) for r in regions}
-            subject_inputs[subj] = (train_acts, test_acts, y_train, y_test)
-        per_subject = encoding.compute_encoding_scores_subjects(
-            subject_inputs, bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
-            reconstruct_pca_k=cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None,
-            cv_precision=cfg.get("encoding_cv_precision", "high"), device=device,
-            mesh=mesh if axis_size(mesh) > 1 else None)
-        LAST_PHASE_TIMES.update({f"encoding_{k}": v for k, v in encoding.LAST_PHASE_TIMES.items()})
-        for subj in subjects:
-            for region in regions:
-                save(per_subject[subj][region], region, subj)
-    else:
-        for region in regions:
-            rprint(f"\n  -- Region: {region} --", style="info")
+        batched = cfg.get("encoding_batched", True) and all(
+            frozenset(neural[r][subj][split]) == frozenset(neural[regions[0]][subj][split])
+            for subj in subjects for split in ("train", "test") for r in regions)
+        if batched:
+            subject_inputs = {}
             for subj in subjects:
-                train_data, test_data = prepare_traintest_alignment(
-                    cfg, acts, neural[region][subj], ids)
-                scores = compute_traintest_alignment(cfg, train_data, test_data,
-                                                     verbose=verbose, device=device)
-                del train_data, test_data
-                save(scores, region, subj)
-    LAST_PHASE_TIMES["encoding_s"] = time.perf_counter() - t0
+                first = neural[regions[0]][subj]
+                train_acts, _, train_ids = align_stimulus_level(acts, first["train"], ids)
+                test_acts, _, test_ids = align_stimulus_level(acts, first["test"], ids)
+                y_train = {r: _neural_tensor(neural[r][subj]["train"], train_ids) for r in regions}
+                y_test = {r: _neural_tensor(neural[r][subj]["test"], test_ids) for r in regions}
+                subject_inputs[subj] = (train_acts, test_acts, y_train, y_test)
+            per_subject = encoding.compute_encoding_scores_subjects(
+                subject_inputs, bootstrap=bootstrap, n_bootstrap=n_bootstrap, verbose=verbose,
+                reconstruct_pca_k=cfg.get("pca_k", 1) if cfg.get("reconstruct_from_pcs") else None,
+                cv_precision=cfg.get("encoding_cv_precision", "high"), device=device,
+                mesh=mesh if axis_size(mesh) > 1 else None)
+            LAST_PHASE_TIMES.update({f"encoding_{k}": v
+                                     for k, v in encoding.LAST_PHASE_TIMES.items()})
+            for subj in subjects:
+                for region in regions:
+                    save(per_subject[subj][region], region, subj)
+        else:
+            for region in regions:
+                rprint(f"\n  -- Region: {region} --", style="info")
+                for subj in subjects:
+                    train_data, test_data = prepare_traintest_alignment(
+                        cfg, acts, neural[region][subj], ids)
+                    scores = compute_traintest_alignment(cfg, train_data, test_data,
+                                                         verbose=verbose, device=device)
+                    del train_data, test_data
+                    save(scores, region, subj)
     return all_results

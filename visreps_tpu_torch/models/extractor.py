@@ -8,6 +8,14 @@ at a time: a tap's flattened copy is dropped before the next is made.
 Exact taps are written straight into their store rows. uint8 batches are
 normalised on the device, after a pinned, non-blocking host→device copy.
 
+``get_activations`` opens one ``extractor.batch`` span a batch
+(``core.profiling.span``), holding ``loader_wait``, ``extractor.h2d``,
+``extractor.forward`` (the exact passes open these three too),
+``extractor.srp_product`` (with ``srp.draw`` inside where a matrix is
+drawn, ``ops/srp.py``) and ``extractor.store``; the probe forward is
+``extractor.probe``. The spans are named for this module, whichever
+phase calls it.
+
 Under a ``mesh`` (``parallel/``, one process per GPU) every rank reads
 the same batches, runs its rows of each (the evals round the batch size
 up to a multiple of the 'data' axis, ``parallel.shard.mesh_batch_size``)
@@ -18,7 +26,6 @@ rank holds the single-process store (the JAX package's
 """
 from __future__ import annotations
 
-import time
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.data.transforms import DS_MEAN, DS_STD
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.ops.srp import SRPTransform
@@ -58,11 +66,10 @@ def expand_return_nodes(tap_specs: dict, return_nodes: Sequence[str],
 
 
 def _batches(loader: Iterable) -> Iterator:
-    """The loader's batches; each wait on it is a ``loader_wait`` span in
-    a profiler trace (``core/profiling.py``)."""
+    """The loader's batches; each wait on it is a ``loader_wait`` span."""
     it = iter(loader)
     while True:
-        with torch.profiler.record_function("loader_wait"):
+        with span("loader_wait"):
             item = next(it, None)
         if item is None:
             return
@@ -104,12 +111,10 @@ class FeatureExtractor:
         self.srp = SRPTransform(k=srp_k, seed=srp_seed, device=self.device)
         self._mean = torch.as_tensor(DS_MEAN["imgnet"], device=self.device)
         self._std = torch.as_tensor(DS_STD["imgnet"], device=self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), span("extractor.probe"):
             probe = torch.zeros((1, 3, image_size, image_size), device=self.device)
             _, taps = self.model(probe, capture=self.points)
         self.tap_dims = {self.alias[p]: taps[p][0].numel() for p in self.points}
-        #: Seconds the last get_activations spent waiting on the loader.
-        self.last_extract_times: dict[str, float] = {}
 
     def out_dims(self) -> dict[str, int]:
         return {name: self.srp.out_dim(d) for name, d in self.tap_dims.items()}
@@ -123,24 +128,35 @@ class FeatureExtractor:
         """(B, H, W, 3) uint8 or normalised float32 batch → (B, 3, H, W)
         float32 on the device; uint8 is normalised there."""
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        if t.dtype == torch.uint8:
-            t = (t.to(torch.float32) / 255.0 - self._mean) / self._std
-        return t.to(torch.float32).permute(0, 3, 1, 2)
+        with span("extractor.h2d"):
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            if t.dtype == torch.uint8:
+                t = (t.to(torch.float32) / 255.0 - self._mean) / self._std
+            return t.to(torch.float32).permute(0, 3, 1, 2)
+
+    def _forward(self, rows: np.ndarray, points) -> dict[str, torch.Tensor]:
+        """The raw taps of host rows (this rank's under a mesh)."""
+        t = self._to_device(rows)
+        with span("extractor.forward"):
+            return self.model(t, capture=points)[1]
 
     def _taps(self, x: np.ndarray, points) -> dict[str, torch.Tensor]:
         """The raw taps of one host batch."""
-        return self._sharded(lambda rows: self.model(self._to_device(rows), capture=points)[1], x)
+        return self._sharded(lambda rows: self._forward(rows, points), x)
 
     def _srp_rows(self, x: np.ndarray) -> dict[str, torch.Tensor]:
         """The SRP rows of every tap of one host batch (under a mesh each
         rank's rows, projected, then all-gathered)."""
+
+        def project(taps: dict) -> dict[str, torch.Tensor]:
+            with span("extractor.srp_product"):
+                return self._project(taps)
+
         if self.mesh is None:
-            return self._project(self._taps(x, self.points))
-        return extract_sharded_batch(
-            lambda rows: self._project(self.model(self._to_device(rows), capture=self.points)[1]),
-            x, self.mesh)
+            return project(self._taps(x, self.points))
+        return extract_sharded_batch(lambda rows: project(self._forward(rows, self.points)),
+                                     x, self.mesh)
 
     def _point_of(self, layer: str) -> str:
         for p in self.points:
@@ -183,39 +199,40 @@ class FeatureExtractor:
         acts = {name: torch.empty((n_rows, k), dtype=dtype, device=on) for name, k in dims.items()}
         ids: list = []
         n_seen = 0
-        loader_s = 0.0
         batches = _batches(loader)
         while True:
-            t = time.perf_counter()
-            item = next(batches, None)
-            loader_s += time.perf_counter() - t
-            if item is None:
-                break
-            x, keys = item
-            n_seen += len(keys)
-            kept = None  # every row of the batch
-            if retain_ids is not None:
-                kept = [i for i, k in enumerate(keys) if str(k) in retain_ids]
-                if len(kept) == len(keys):
-                    kept = None
-                else:
-                    rows = torch.as_tensor(kept, dtype=torch.long)
-                    if store == "device" and self.device.type == "cuda":
-                        rows = rows.pin_memory().to(self.device, non_blocking=True)
-            pos = len(ids)
-            m = len(keys) if kept is None else len(kept)
-            for name, out in self._srp_rows(x).items():
-                if kept is not None:
-                    out = out.index_select(0, rows) if store == "device" else out.cpu()[rows]
-                acts[name][pos:pos + m] = out
-            ids.extend(keys if kept is None else [keys[i] for i in kept])
+            with span("extractor.batch"):
+                item = next(batches, None)
+                if item is None:
+                    break
+                x, keys = item
+                n_seen += len(keys)
+                kept = None  # every row of the batch
+                if retain_ids is not None:
+                    kept = [i for i, k in enumerate(keys) if str(k) in retain_ids]
+                    if len(kept) == len(keys):
+                        kept = None
+                    else:
+                        rows = torch.as_tensor(kept, dtype=torch.long)
+                        if store == "device" and self.device.type == "cuda":
+                            rows = rows.pin_memory().to(self.device, non_blocking=True)
+                pos = len(ids)
+                m = len(keys) if kept is None else len(kept)
+                srp = self._srp_rows(x)
+                with span("extractor.store"):
+                    for name, out in srp.items():
+                        if kept is not None:
+                            out = (out.index_select(0, rows) if store == "device"
+                                   else out.cpu()[rows])
+                        acts[name][pos:pos + m] = out
+                    del srp
+                ids.extend(keys if kept is None else [keys[i] for i in kept])
         if n_seen != n_total:
             raise RuntimeError(f"loader yielded {n_seen} stimuli, expected {n_total}")
         if len(ids) < n_rows:
             acts = {name: a[:len(ids)] for name, a in acts.items()}
         if store == "device" and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.last_extract_times = {"loader_s": loader_s}
         kept_msg = "" if retain_ids is None else f" kept of {n_total}"
         rprint(f"  SRP activations: {len(acts)} taps x {len(ids)} stimuli{kept_msg} ({store})",
                style="success")

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.convert import params_from_jax
 
@@ -229,17 +230,19 @@ def find_torch_weight_file(model_name: str) -> Path | None:
 def load_pretrained_torch(model: nn.Module, model_name: str,
                           num_classes: int | None = None) -> nn.Module:
     """Import IMAGENET1K torchvision weights into ``model`` if the file is
-    on disk; otherwise warn and keep its random init."""
+    on disk (the ``torch_import.load`` span); otherwise warn and keep its
+    random init."""
     path = find_torch_weight_file(model_name)
     if path is None:
         rprint(f"Pretrained weights for {model_name} not found locally "
                "(set TORCH_WEIGHTS_DIR); using random init.", style="warning")
         return model
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
-    rprint(f"  Imported torchvision weights: {path.name}", style="success")
-    return apply_torch_state_dict(model, model_name, sd, num_classes)
+    with span("torch_import.load"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        rprint(f"  Imported torchvision weights: {path.name}", style="success")
+        return apply_torch_state_dict(model, model_name, sd, num_classes)
 
 
 # The reference's module paths (including the legacy custom_cnn alias)

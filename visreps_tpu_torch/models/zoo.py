@@ -12,6 +12,7 @@ from torch import nn
 
 from visreps_tpu_torch.core.config import get_seed_letter
 from visreps_tpu_torch.core.logging import rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.device import resolve_device
 from visreps_tpu_torch.models.custom_cnn import CustomCNN, TinyCustomCNN
 from visreps_tpu_torch.models.ecnet import ECTiedNet
@@ -64,11 +65,14 @@ def init_model(model_name: str = "AlexNet", num_classes: int = 1000, seed: int =
     """A fresh model in eval mode on ``device`` (CUDA unless ``"cpu"`` is
     asked for), its weights drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` (so the same seed gives the
-    same weights on every device) in its family's init."""
-    model = build_model(model_name, num_classes, arch)
+    same weights on every device) in its family's init. Spans:
+    ``zoo.init`` (the build and init on the CPU) and ``zoo.to_device``."""
     device = resolve_device(device)
-    model.init_weights(torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    with span("zoo.init"):
+        model = build_model(model_name, num_classes, arch)
+        model.init_weights(torch.Generator().manual_seed(seed))
+    with span("zoo.to_device"):
+        return model.to(device).eval()
 
 
 def checkpoint_path(cfg) -> str:

@@ -13,6 +13,8 @@ package's per-dim subseed ``(seed·1_000_003 + D) % (2³¹−1)``: the same
 family and the same seeding rule, but not ``jax.random``'s bits (the
 reference PyTorch code drew with seed=None, so no canonical matrix
 exists). ``models/convert.srp_from_jax`` loads matrices made elsewhere.
+Each draw is an ``srp.draw`` span (``core.profiling.span``) counting
+the matrix's ``bytes``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import math
 
 import torch
 
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.device import resolve_device
 
 # Rows drawn per generator call: bounds the f32 temporaries of a large
@@ -61,22 +64,23 @@ class SRPTransform:
         key = (d, self.k)
         if key not in self._cache:
             k_eff = self.out_dim(d)
-            density = 1.0 / math.sqrt(d)
-            subseed = (self.seed * 1_000_003 + d) % (2**31 - 1)
-            gen = torch.Generator(device=self.device).manual_seed(subseed)
-            if 2 * d * k_eff < 2**31:
-                bounds = [(0, d)]
-            else:
-                n_chunks = -(-(2 * d * k_eff) // (2**30))
-                rows = -(-d // n_chunks)
-                bounds = [(s, min(s + rows, d)) for s in range(0, d, rows)]
-            chunks = []
-            for start, stop in bounds:
-                parts = [_sparse_sign_rows(gen, min(_DRAW_ROWS, stop - r), k_eff,
-                                           density, self.device)
-                         for r in range(start, stop, _DRAW_ROWS)]
-                chunks.append(torch.cat(parts) if len(parts) > 1 else parts[0])
-            self._cache[key] = tuple(chunks)
+            with span("srp.draw", bytes=2 * d * k_eff):
+                density = 1.0 / math.sqrt(d)
+                subseed = (self.seed * 1_000_003 + d) % (2**31 - 1)
+                gen = torch.Generator(device=self.device).manual_seed(subseed)
+                if 2 * d * k_eff < 2**31:
+                    bounds = [(0, d)]
+                else:
+                    n_chunks = -(-(2 * d * k_eff) // (2**30))
+                    rows = -(-d // n_chunks)
+                    bounds = [(s, min(s + rows, d)) for s in range(0, d, rows)]
+                chunks = []
+                for start, stop in bounds:
+                    parts = [_sparse_sign_rows(gen, min(_DRAW_ROWS, stop - r), k_eff,
+                                               density, self.device)
+                             for r in range(start, stop, _DRAW_ROWS)]
+                    chunks.append(torch.cat(parts) if len(parts) > 1 else parts[0])
+                self._cache[key] = tuple(chunks)
         return self._cache[key]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from visreps_tpu_torch.core.logging import MetricsLogger, is_interactive_environment, rprint
+from visreps_tpu_torch.core.profiling import span
 from visreps_tpu_torch.data.augment import augment_batch
 from visreps_tpu_torch.data.obj_cls import get_obj_cls_loader
 from visreps_tpu_torch.device import resolve_device
@@ -281,10 +282,9 @@ class Trainer:
         lr = lr_at_epoch(self.cfg, epoch - 1)
         batches = iter(self.loaders["train"])
         while True:
-            t0 = time.perf_counter()
-            with torch.profiler.record_function("loader_wait"):  # names the wait in a trace
+            with span("loader_wait") as wait:
                 batch = next(batches, None)
-            self.loader_wait_s += time.perf_counter() - t0
+            self.loader_wait_s += wait.seconds
             if batch is None:
                 break
             x, y, rows = rank_rows(batch[0], batch[1], self.mesh)
